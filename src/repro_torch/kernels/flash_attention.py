@@ -25,7 +25,7 @@ from . import _build
 from .ref import flash_attention_ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the count was last set to 0

@@ -1,16 +1,17 @@
 """Dispatch between the Hopper kernels and their plain versions.
 
-The model layers call these functions, so :func:`policy.set_policy` moves
-every hot spot between the kernels and the plain versions without touching
-model code.  Only attention exists so far; the SSD and RG-LRU scans come
-with the slices that port them.
+The model layers call these functions, under the JAX package's gates, so
+:func:`policy.set_policy` moves every hot spot between the kernels and the
+plain versions without touching model code.
 """
 
 from __future__ import annotations
 
 from .flash_attention import flash_attention
-from .policy import select_attention_impl
-from .ref import flash_attention_ref
+from .policy import select_attention_impl, select_rglru_impl, select_ssd_impl
+from .ref import flash_attention_ref, rglru_ref, ssd_scan_ref
+from .rglru_scan import rglru_scan
+from .ssd_scan import ssd_scan
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None):
@@ -18,3 +19,18 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None):
     if select_attention_impl(q.shape, k.shape, q.device) == "cuda":
         return flash_attention(q, k, v, causal=causal, window=window)
     return flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int):
+    """x: (b,s,h,p); dt: (b,s,h); A: (h,); B/C: (b,s,n) ->
+    (y, final state)."""
+    if select_ssd_impl(x.shape, B.shape[-1], chunk, x.device) == "cuda":
+        return ssd_scan(x, dt, A, B, C, chunk=chunk)
+    return ssd_scan_ref(x, dt, A, B, C, chunk)
+
+
+def rglru(x, r, i, lam):
+    """x, r, i: (b,s,w); lam: (w,) -> h (b,s,w)."""
+    if select_rglru_impl(x.shape, x.device) == "cuda":
+        return rglru_scan(x, r, i, lam)
+    return rglru_ref(x, r, i, lam)

@@ -1,7 +1,9 @@
 """Global kernel dispatch policy of the port.
 
-* ``"auto"`` (the default): CUDA tensors of an eligible shape go to the
-  Hopper kernels; CPU tensors take the plain versions.
+* ``"auto"`` (the default): CUDA tensors go to the Hopper kernels; CPU
+  tensors take the plain versions.  A CUDA call that the model sends to a
+  kernel (under the JAX package's gate) and that the kernel cannot take
+  raises: nothing goes to a plain version on the card without being asked.
 * ``"cuda"``: the kernels, and a CPU tensor raises.
 * ``"ref"``: the plain versions everywhere (tests and yardsticks).
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from . import rglru_scan, ssd_scan
 from .flash_attention import HEAD_DIMS
 
 VALID_POLICIES = ("auto", "cuda", "ref")
@@ -52,12 +55,27 @@ def use_kernels(device) -> bool:
     return False
 
 
+def _select(device, eligible: bool, what: str) -> str:
+    """``"cuda"`` where the policy sends ``device`` to the kernels and the
+    kernel takes the call, ``"ref"`` where the policy sends it to the plain
+    versions; raises where the policy sends it to a kernel that cannot
+    take it."""
+    if not use_kernels(device):
+        return "ref"
+    if not eligible:
+        raise ValueError(
+            f"{what}: the kernel does not take this call and the policy "
+            f"{_POLICY!r} sends {torch.device(device)} tensors to the "
+            f"kernels; set_policy('ref') runs the plain versions")
+    return "cuda"
+
+
 def attention_eligible(q_shape, kv_shape) -> bool:
     """Whether the Hopper flash-attention kernel takes these shapes:
     ``q (B, H, Sq, D)``, ``k/v (B, K, Sk, D)`` with an integral GQA ratio
-    ``H % K == 0``, equal head dims, ``D`` 64 or 128, and ``Sq, Sk >= 1``.
-    The kernel masks its ragged tiles, so no multiple of the tile is
-    needed (the JAX kernel needs multiples of 128)."""
+    ``H % K == 0``, equal head dims, ``D`` in 64, 128 or 256, and
+    ``Sq, Sk >= 1``.  The kernel masks its ragged tiles, so no multiple of
+    the tile is needed (the JAX kernel needs multiples of 128)."""
     if len(q_shape) != 4 or len(kv_shape) != 4:
         return False
     b, h, sq, d = q_shape
@@ -68,12 +86,28 @@ def attention_eligible(q_shape, kv_shape) -> bool:
 
 def select_attention_impl(q_shape, kv_shape, device) -> str:
     """``"cuda"`` or ``"ref"`` for one attention call, memoized per shape
-    pair and device type."""
+    pair and device type; raises for a shape the kernel cannot take on a
+    device the policy sends to the kernels."""
     dev = torch.device(device).type
     key = (tuple(q_shape), tuple(kv_shape), dev)
     impl = _impl_cache.get(key)
     if impl is None:
-        impl = _impl_cache[key] = (
-            "cuda" if use_kernels(device)
-            and attention_eligible(q_shape, kv_shape) else "ref")
+        impl = _impl_cache[key] = _select(
+            device, attention_eligible(q_shape, kv_shape),
+            f"flash attention, q {tuple(q_shape)}, kv {tuple(kv_shape)}")
     return impl
+
+
+def select_ssd_impl(x_shape, n: int, chunk: int, device) -> str:
+    """``"cuda"`` or ``"ref"`` for one SSD scan; raises for a shape the
+    kernel cannot take on a device the policy sends to the kernels."""
+    return _select(device, ssd_scan.eligible(x_shape, n, chunk),
+                   f"SSD scan, x {tuple(x_shape)}, d_state {n}, chunk "
+                   f"{chunk}")
+
+
+def select_rglru_impl(x_shape, device) -> str:
+    """``"cuda"`` or ``"ref"`` for one RG-LRU scan; raises for a shape the
+    kernel cannot take on a device the policy sends to the kernels."""
+    return _select(device, rglru_scan.eligible(x_shape),
+                   f"RG-LRU scan, x {tuple(x_shape)}")

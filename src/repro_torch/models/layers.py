@@ -175,8 +175,9 @@ def sdpa(q, k, v, *, causal: bool, window: int | None = None,
     q: (B, Sq, H, hd); k/v: (B, Sk, K, hd).  The flash kernel takes the
     call under the JAX package's gate (``layers.py:232-233``: no
     ``q_offset``, no ``length_mask``, ``Sq`` and ``Sk`` multiples of 128,
-    ``hd % 8 == 0``) when the policy sends this device to the kernels;
-    every other call takes the plain path.  Long sequences take a
+    ``hd % 8 == 0``) when the policy sends this device to the kernels, or
+    raises if the kernel cannot take it (``kernels/policy.py``); every
+    call outside the gate takes the plain path.  Long sequences take a
     query-chunked plain path, as in the JAX package.
     """
     b, sq, h, hd = q.shape
@@ -199,10 +200,17 @@ def sdpa(q, k, v, *, causal: bool, window: int | None = None,
 
 
 def apply_attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
-                    cache=None):
-    """Self-attention.  ``cache`` (decode): dict with k/v (B, S_max, K, hd)
-    and ``idx`` (an int); returns (y, new_cache).  The sliding-window ring
-    buffer of the JAX package comes with the recurrentgemma slice."""
+                    window: int | None = None, cache=None):
+    """Self-attention, with an optional sliding ``window``.  ``cache``
+    (decode): dict with k/v (B, S_cache, K, hd) and ``idx`` (an int);
+    returns (y, new_cache).
+
+    Decode has the JAX package's two branches (``layers.py:285-302``).  With
+    a window and a cache no longer than it, the cache is a ring buffer: the
+    token at ``idx`` goes to slot ``idx % S_cache``, and every live slot is
+    in the window by construction (keys keep their write-time RoPE).
+    Otherwise the cache is written at ``idx`` and the window masks it, with
+    the query at offset ``idx``."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     b, s = x.shape[:2]
     q = x @ p["wq"]
@@ -220,13 +228,17 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
     new_cache = None
     if cache is not None:
         idx = cache["idx"]
-        ck = cache_write(cache["k"], k, idx)
-        cv = cache_write(cache["v"], v, idx)
-        valid = torch.arange(ck.shape[1], device=x.device) < idx + s
-        y = sdpa(q, ck, cv, causal=False, q_offset=idx, kv_seq_hint=True,
-                 length_mask=valid[None, :].expand(b, ck.shape[1]))
+        cache_len = cache["k"].shape[1]
+        ring = window is not None and cache_len <= window
+        at = idx % cache_len if ring else idx
+        ck = cache_write(cache["k"], k, at)
+        cv = cache_write(cache["v"], v, at)
+        valid = torch.arange(cache_len, device=x.device) < idx + s
+        y = sdpa(q, ck, cv, causal=False, window=None if ring else window,
+                 q_offset=0 if ring else idx, kv_seq_hint=True,
+                 length_mask=valid[None, :].expand(b, cache_len))
         new_cache = {"k": ck, "v": cv, "idx": idx + s}
     else:
-        y = sdpa(q, k, v, causal=causal)
+        y = sdpa(q, k, v, causal=causal, window=window)
     out = y.reshape(b, s, H * hd) @ p["wo"]
     return out, new_cache

@@ -3,11 +3,16 @@
     python -m repro_torch.serve [--arch qwen2-1.5b] [--reduced] [--batch 4]
         [--prompt-len 512] [--gen 32] [--device cuda] [--seed 0]
 
+``--arch`` is any ported config: ``qwen2-1.5b`` (dense), ``mamba2-370m``
+(SSD blocks) or ``recurrentgemma-9b`` (Griffin: RG-LRU and local attention).
+
 Answers the batch the way the JAX serving pair does (``examples/serve.py``):
 
 1. ``build_prefill_step`` over the prompts gives the first token's logits;
-   on a GPU this is where the flash-attention kernel runs, once per layer.
-2. The KV caches are filled by teacher-forcing the prompt through
+   on a GPU this is where the kernels run: flash attention once per
+   attention layer, the SSD scan once per Mamba2 layer, the RG-LRU scan
+   once per recurrent layer.
+2. The caches are filled by teacher-forcing the prompt through
    ``build_decode_step``; the last of those logits must agree with
    prefill's (the decode-vs-forward equivalence of the JAX tests).
 3. Greedy decode: the first token is the argmax of the prefill logits, and
@@ -26,7 +31,7 @@ import torch
 
 from .configs import get_config
 from .device import resolve_device
-from .kernels import flash_attention as fa
+from .kernels import flash_attention, rglru_scan, ssd_scan
 from .models.config import ModelConfig
 from .models.model import init_decode_state, init_params
 from .train.steps import build_decode_step, build_prefill_step
@@ -35,12 +40,23 @@ from .train.steps import build_decode_step, build_prefill_step
 #: the JAX decode path to the full forward
 AGREE_ATOL, AGREE_RTOL = 2e-3, 1e-3
 
+#: the kernel wrappers whose launch counts ``generate`` reports
+KERNELS = {"flash": flash_attention, "ssd": ssd_scan, "rglru": rglru_scan}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def _since(before: dict[str, int]) -> dict[str, int]:
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
 
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
              gen: int) -> dict:
     """Serve ``prompts`` (B, P) and return the generated tokens (B, gen),
-    the prefill and teacher-forced logits, the timings and the number of
-    flash-attention launches during prefill."""
+    the prefill and teacher-forced logits, the timings, and the launches
+    of each kernel during prefill and over the whole run."""
     prefill = build_prefill_step(cfg)
     step = build_decode_step(cfg)
     dev = prompts.device
@@ -50,13 +66,13 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    launches0 = fa.launches
+    start = launch_counts()
     sync()
     t0 = time.perf_counter()
     prefill_logits = prefill(params, {"tokens": prompts})
     sync()
     prefill_s = time.perf_counter() - t0
-    prefill_launches = fa.launches - launches0
+    prefill_launches = _since(start)
 
     state = init_decode_state(cfg, B, P + gen, dtype=params["embed"].dtype,
                               device=dev)
@@ -91,6 +107,7 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
         "decode_ms": decode_s * 1e3,
         "decode_tok_s": B * (gen - 1) / decode_s if gen > 1 else 0.0,
         "prefill_launches": prefill_launches,
+        "launches": _since(start),
     }
 
 
@@ -122,10 +139,11 @@ def main(argv=None) -> dict:
     print(f"arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"batch={args.batch} device={device}")
     print(f"prefill {args.prompt_len} tokens: {res['prefill_ms']:.3f} ms "
-          f"({res['prefill_launches']} flash-attention launches); "
+          f"(kernel launches {res['prefill_launches']}); "
           f"cache fill {res['fill_ms']:.1f} ms; decode {args.gen - 1} "
           f"steps: {res['decode_ms']:.1f} ms ({res['decode_tok_s']:.1f} "
           f"tok/s)")
+    print(f"kernel launches over the whole run: {res['launches']}")
     print(f"prefill vs teacher-forced logits: max |diff| "
           f"{res['max_abs_diff']:.3e}, agree={res['agree']}")
     print("sample generation (token ids):",

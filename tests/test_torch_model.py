@@ -211,8 +211,7 @@ def test_sdpa_query_chunked_path_matches_one_block():
 
 def test_unported_families_raise(cfgs):
     g = torch.Generator().manual_seed(0)
-    for arch in ("mamba2-370m", "recurrentgemma-9b", "deepseek-v2-236b",
-                 "whisper-large-v3", "qwen2-vl-72b"):
+    for arch in ("deepseek-v2-236b", "whisper-large-v3", "qwen2-vl-72b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.init_params(get_config(arch).reduced(), generator=g,
                            device="cpu")

@@ -57,7 +57,9 @@ def test_serve_greedy_tokens_match_jax_serving_pair(monkeypatch, capsys):
                       str(P), "--gen", str(GEN)])
     printed = capsys.readouterr().out
     assert "prefill 128 tokens" in printed and "agree=True" in printed
-    assert res["agree"] and res["prefill_launches"] == 0
+    assert res["agree"]
+    assert res["prefill_launches"] == res["launches"] == {
+        "flash": 0, "ssd": 0, "rglru": 0}
     assert res["tokens"].shape == (B, GEN)
 
     prompts = np.random.default_rng(0).integers(0, jcfg.vocab, (B, P))
