@@ -16,6 +16,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernel alone where the wrapper prepares its inputs, the plain version,
    the bound, and one library call where one computes the same function
    (``scaled_dot_product_attention``, a yardstick the port never calls).
+   Times are device times (calls captured in a CUDA graph and replayed);
+   the wrapper's time issued from Python call by call stands beside.
 4. serve: full-width, full-depth Qwen2-1.5B (28 layers), then Mamba2-370M
    (48 layers) and RecurrentGemma-9B (38 layers), each fp32 with random
    weights from seed 0 and freed before the next, each answering 4 prompts
@@ -70,7 +72,30 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
+def ptxas_report(log: str):
+    """(kernel, registers, spill store bytes, spill load bytes) for each
+    kernel in an ``nvcc -Xptxas=-v`` log, in order."""
+    import re
+    out, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), *spill))
+            fn, spill = None, (0, 0)
+    return out
+
+
+def eager_ms(fn, iters=20, warmup=3) -> float:
+    """Time of one call of fn issued from Python, back to back: CUDA events
+    around ``iters`` calls.  Where the host takes longer to issue a call
+    than the card to run it, this is the host's time."""
     import torch
     for _ in range(warmup):
         fn()
@@ -82,6 +107,41 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+_capture_stream = None
+
+
+def time_ms(fn, iters=20, warmup=3, replays=3) -> float:
+    """Device time of one call of fn: ``iters`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so the host's
+    cost of issuing each call is left out.  Warm-up and capture share one
+    side stream for the whole run (cuBLAS keeps a workspace per stream)."""
+    import torch
+    global _capture_stream
+    if _capture_stream is None:
+        _capture_stream = torch.cuda.Stream()
+    side = _capture_stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (iters * replays)
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -157,17 +217,37 @@ def attention_cases():
          "bshd"),
         ("D256 window 128", "float32", 1, 4, 1, 640, 640, 256, True, 128,
          "bshd"),
+        # the tensor-core path: each head dim with fully-masked rows, a
+        # ragged Sq != Sk, non-causal, and a window that bites at D = 256
+        ("fully-masked rows D64", "bfloat16", 1, 2, 1, 256, 128, 64, True,
+         16, "bhsd"),
+        ("fully-masked rows D128", "bfloat16", 1, 2, 1, 256, 128, 128, True,
+         16, "bhsd"),
+        ("fully-masked rows D256", "bfloat16", 1, 2, 1, 256, 128, 256, True,
+         16, "bhsd"),
+        ("Sq != Sk, ragged D128", "bfloat16", 1, 4, 2, 320, 200, 128, True,
+         None, "bhsd"),
+        ("non-causal D256", "bfloat16", 1, 4, 1, 200, 333, 256, False, None,
+         "bshd"),
+        ("D256 window 128 bf16", "bfloat16", 1, 4, 1, 640, 640, 256, True,
+         128, "bshd"),
     ]
 
 
 def ssd_cases():
-    """(name, dtype, b, s, h, p, n, chunk)."""
+    """(name, dtype, b, s, h, p, n, chunk); B and C are contiguous, except
+    in the "column views" case, where they are column slices of one wider
+    tensor, as the model passes them."""
     return [
         ("main fp32", "float32", 4, 512, 32, 64, 128, 256),
         ("main bf16", "bfloat16", 4, 512, 32, 64, 128, 256),
         ("3 chunks, small p n", "float32", 1, 192, 2, 32, 64, 64),
         ("b 3, h 5", "float32", 3, 256, 5, 64, 128, 128),
         ("p 128, chunk 96", "bfloat16", 2, 192, 3, 128, 96, 96),
+        ("s 1024, 4 chunks", "float32", 2, 1024, 8, 64, 128, 256),
+        ("one chunk of 2048", "float32", 1, 2048, 4, 64, 128, 2048),
+        ("h 5 bf16", "bfloat16", 2, 256, 5, 64, 128, 128),
+        ("B, C column views", "float32", 2, 512, 32, 64, 128, 256),
     ]
 
 
@@ -209,7 +289,7 @@ def phase_attention(torch, fa, ref, gen):
         if not bool(torch.isfinite(out).all()):
             fail(f"flash {name}: non-finite output")
         err = (out.float() - want).abs().max().item()
-        if name == "fully-masked rows":
+        if name.startswith("fully-masked rows"):
             # rows 143.. see no key: the mean of v over all keys
             mean_err = (out[0, :, 255].float()
                         - v[0, 0].float().mean(0)).abs().max().item()
@@ -224,8 +304,9 @@ def phase_attention(torch, fa, ref, gen):
         worst = max(worst, err)
         if name.startswith("main"):
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                    window=window))
+            call = lambda: fa.flash_attention(q, k, v,  # noqa: E731
+                                              causal=causal, window=window)
+            ms, host_ms = time_ms(call), eager_ms(call)
             plain_ms = time_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=causal, window=window))
             # the window (2048) never bites at S = 512, so is_causal is the
@@ -235,10 +316,13 @@ def phase_attention(torch, fa, ref, gen):
             bnd, by = attention_bound_ms(q, k, causal, window)
             timing[(d, dt)] = dict(ms=ms, plain_ms=plain_ms,
                                    library_ms=lib_ms, bound_ms=bnd,
-                                   bound_by=by)
-            print(f"    time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}); "
-                  f"kernel at {bnd / ms:.1%} of the bound")
+                                   bound_by=by, sdpa_ratio=ms / lib_ms,
+                                   max_abs_err=err, eager_ms=host_ms)
+            print(f"    time: kernel {ms:.4f} ms (issued from Python one by "
+                  f"one {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                  f"sdpa {lib_ms:.4f} ms (kernel / sdpa {ms / lib_ms:.2f}), "
+                  f"bound {bnd:.4f} ms ({by}); kernel at {bnd / ms:.1%} of "
+                  f"the bound")
     return worst, timing
 
 
@@ -260,8 +344,14 @@ def phase_ssd(torch, sk, ref, gen):
         x = (rnd(b, s, h, p) * 0.5).to(dtype)
         dts = F.softplus(rnd(b, s, h))
         A = -torch.exp(rnd(h) * 0.3)
-        B = (rnd(b, s, n) * 0.3).to(dtype)
-        C = (rnd(b, s, n) * 0.3).to(dtype)
+        if name == "B, C column views":
+            BC = (rnd(b, s, 2 * n + 16) * 0.3).to(dtype)
+            B, C = BC[..., 16:16 + n], BC[..., 16 + n:]
+            if sk.prepare(x, dts, A, B, C)[2].data_ptr() != B.data_ptr():
+                fail(f"ssd {name}: prepare() copied the column views")
+        else:
+            B = (rnd(b, s, n) * 0.3).to(dtype)
+            C = (rnd(b, s, n) * 0.3).to(dtype)
         y, st = sk.ssd_scan(x, dts, A, B, C, chunk=chunk)
         yr, sr = ref.ssd_scan_ref(x.float(), dts, A, B.float(), C.float(),
                                   chunk)
@@ -285,7 +375,9 @@ def phase_ssd(torch, sk, ref, gen):
         worst = max(worst, ey, es_)
         if name.startswith("main"):
             prep = sk.prepare(x, dts, A, B, C)
-            ms = time_ms(lambda: sk.ssd_scan(x, dts, A, B, C, chunk=chunk))
+            call = lambda: sk.ssd_scan(x, dts, A, B, C,  # noqa: E731
+                                       chunk=chunk)
+            ms, host_ms = time_ms(call), eager_ms(call)
             kms = time_ms(lambda: sk.launch(*prep, chunk=chunk))
             plain_ms = time_ms(lambda: ref.ssd_scan_ref(x, dts, A, B, C,
                                                         chunk), iters=5)
@@ -294,8 +386,10 @@ def phase_ssd(torch, sk, ref, gen):
             kbnd, kby = ssd_bound_ms(b, s, h, p, n, chunk, dt, es, True)
             timing[dt] = dict(ms=ms, kernel_ms=kms, plain_ms=plain_ms,
                               library_ms=None, bound_ms=bnd, bound_by=by,
-                              kernel_bound_ms=kbnd)
+                              kernel_bound_ms=kbnd, max_abs_err=max(ey, es_),
+                              eager_ms=host_ms)
             print(f"    time: wrapper {ms:.4f} ms (kernel alone {kms:.4f} "
+                  f"ms; wrapper issued from Python one by one {host_ms:.4f} "
                   f"ms), plain {plain_ms:.4f} ms, no library call; bound "
                   f"{bnd:.4f} ms ({by}), kernel alone {kbnd:.4f} ms ({kby});"
                   f" wrapper at {bnd / ms:.1%} of the bound")
@@ -528,10 +622,14 @@ def main() -> int:
         _build.load(name)
     print(f"  built {sorted(reports)} of {sources} in "
           f"{time.perf_counter() - t0:.1f} s")
+    spills = []
     for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for fn, regs, st, ld in ptxas_report(log):
+            print(f"  {name}: {fn}: {regs} registers, spill stores {st} B, "
+                  f"loads {ld} B")
+            if st or ld:
+                spills.append(f"{name}: {fn}")
+    print(f"  ptxas spills: {spills or 'none'}")
 
     print("== phase 3: kernels vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -557,16 +655,22 @@ def main() -> int:
         {"shape": "B4 H16 K1 S512 D256 causal window 2048 fp32 "
                   "(RecurrentGemma-9B prefill)",
          "launches": paths["recurrentgemma-9b"]["flash"],
-         **fa_t[(256, "float32")]}]
+         **fa_t[(256, "float32")]},
+        {"shape": "B4 H12 K2 S512 D128 causal bf16 (tensor cores)",
+         "launches": 0, **fa_t[(128, "bfloat16")]},
+        {"shape": "B4 H16 K1 S512 D256 causal window 2048 bf16 (tensor "
+                  "cores)", "launches": 0, **fa_t[(256, "bfloat16")]}]
     kernels = [
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:114", total["flash"],
-              fa_worst, fa_t[(128, "float32")], shapes=flash_shapes),
+              fa_worst, fa_t[(128, "float32")], cuda_launches_per_call=1,
+              shapes=flash_shapes),
         entry("ssd_scan", csrc + "ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:92", total["ssd"], ssd_worst,
               ssd_t["float32"], kernel_ms=ssd_t["float32"]["kernel_ms"],
+              cuda_launches_per_call=3,
               shape="b4 s512 h32 p64 n128 chunk256 fp32 "
-                    "(Mamba2-370M prefill)"),
+                    "(Mamba2-370M prefill)", bf16=ssd_t["bfloat16"]),
         entry("rglru_scan", csrc + "rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:70", total["rglru"], rg_worst,
               rg_t["float32"], kernel_ms=rg_t["float32"]["kernel_ms"],

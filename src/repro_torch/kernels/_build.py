@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled for Hopper
 (``sm_90a``) into ``build/lib<name>-<hash>.so`` inside the package, the hash
-taken over the source so that an edited kernel is rebuilt, and loaded with
+taken over the source and every header under ``csrc/`` (``*.cuh``) so that
+an edited kernel or helper is rebuilt, and loaded with
 :mod:`ctypes`.  Several sources build in parallel, one ``nvcc`` each
 (:func:`build`).  A build or load failure raises; nothing falls back.
 """
@@ -34,10 +35,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives: named by a hash of
+    the source and of every header beside it."""
+    digest = hashlib.sha1()
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict[str, str]:

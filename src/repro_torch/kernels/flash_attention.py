@@ -6,7 +6,10 @@ kernel takes q ``(B, H, Sq, D)`` and k, v ``(B, K, Sk, D)`` with
 ``H % K == 0``, fp32 or bf16, ``D`` in :data:`HEAD_DIMS`, any ``Sq`` and
 ``Sk`` (ragged tiles are masked in the kernel) and any strides whose last
 dimension is unit, so the model can hand it transposed views without a
-copy.  The output is a new contiguous ``(B, H, Sq, D)`` tensor in q's type.
+copy (a tensor whose rows are not 16-byte aligned, which the kernel's
+asynchronous copies need, is made contiguous first).  The output is a new
+contiguous ``(B, H, Sq, D)`` tensor in q's type.  fp32 runs on the CUDA
+cores, exactly; bf16 on the tensor cores.
 
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`.  On a CUDA tensor it
@@ -61,7 +64,7 @@ def check_inputs(q, k, v, window) -> None:
         raise ValueError(f"query heads {h} not a multiple of kv heads {kh}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if sq < 1 or sk < 1 or b > 65535 or h > 65535:
+    if sq < 1 or sk < 1 or -(-sq // 32) * h * b >= 2 ** 31:  # flat grid
         raise ValueError(f"unsupported sizes B={b} H={h} Sq={sq} Sk={sk}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: need one "
@@ -74,6 +77,15 @@ def check_inputs(q, k, v, window) -> None:
         raise ValueError(f"window must be None or >= 1, got {window}")
 
 
+def _rows_aligned(t):
+    """t itself when every row starts on a 16-byte boundary, else a
+    contiguous copy (fresh storage, so aligned)."""
+    per = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(st % per == 0 for st in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
     """Causal / sliding-window GQA attention forward, ``(B, H, Sq, D)``."""
@@ -83,6 +95,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     fn, err_str = _kernel_fn()
+    q, k, v = _rows_aligned(q), _rows_aligned(k), _rows_aligned(v)
     b, h, sq, d = q.shape
     kh, sk = k.shape[1], k.shape[2]
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)

@@ -7,7 +7,11 @@ in x's type and the final state (b, h, p, n) in fp32.  As in the JAX
 wrapper, ``la = dt * A`` is formed in fp32 and ``xbar = x * dt`` in x's
 type here, and the kernel takes la, xbar, B and C.  It takes x, B and C
 of one type, fp32 or bf16, p in :data:`HEAD_DIMS`, n up to :data:`MAX_STATE`
-and any s that is a multiple of ``chunk`` (the JAX gate).
+and any s that is a multiple of ``chunk`` (the JAX gate).  B and C are read
+through their row strides, so the model's column slices of the convolution
+output reach the kernel without a copy.  One call issues three CUDA
+launches (chunk states, the state pass, the outputs) into two fp32 scratch
+arrays allocated here; it counts as one.
 
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.ssd_scan_ref`.  On a CUDA tensor it launches
@@ -20,6 +24,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .ref import ssd_scan_ref
@@ -41,8 +46,8 @@ def _kernel_fn():
     if _fn is None:
         lib = _build.load(NAME)
         fn = lib.ssd_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -85,31 +90,57 @@ def check_inputs(x, dt, A, B, C, chunk) -> None:
         raise ValueError("x, dt, A, B, C must lie on one device")
 
 
+def _rows_aligned(t) -> bool:
+    """Whether the kernel can copy the rows of t (b, s, n) as 16-byte
+    chunks: unit last stride, n a multiple of 8, base and row strides
+    16-byte aligned."""
+    per = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.shape[-1] % 8 == 0
+            and t.data_ptr() % 16 == 0 and t.stride(0) % per == 0
+            and t.stride(1) % per == 0)
+
+
 def prepare(x, dt, A, B, C):
     """The kernel's inputs, formed as the JAX wrapper forms them:
-    ``la = dt * A`` in fp32 and ``xbar = x * dt`` in x's type, all
-    contiguous."""
+    ``la = dt * A`` in fp32 and ``xbar = x * dt`` in x's type, both
+    contiguous.  B and C pass as they are when their rows are aligned (the
+    model's column slices are); otherwise they are copied, with n padded
+    by zeros to a multiple of 8, which changes no product."""
     la = (dt * A[None, None, :]).float().contiguous()
     xbar = (x * dt[..., None].to(x.dtype)).contiguous()
-    return la, xbar, B.contiguous(), C.contiguous()
+    n8 = -(-B.shape[-1] // 8) * 8
+
+    def rows(t):
+        return t if _rows_aligned(t) else F.pad(
+            t, (0, n8 - t.shape[-1])).contiguous()
+    return la, xbar, rows(B), rows(C)
 
 
-def launch(la, xbar, B, C, *, chunk: int):
-    """One launch of the kernel on prepared inputs -> (y, state).  Counts
-    nothing: :func:`ssd_scan` is the counted entry point."""
+def launch(la, xbar, B, C, *, chunk: int, n: int | None = None):
+    """One call of the kernel on prepared inputs -> (y, state), with the
+    state cut to the first ``n`` columns where :func:`prepare` padded B and
+    C.  Counts nothing: :func:`ssd_scan` is the counted entry point."""
     fn, err_str = _kernel_fn()
     b, s, h, p = xbar.shape
-    n = B.shape[-1]
+    npad = B.shape[-1]
+    dev = xbar.device
     y = torch.empty_like(xbar)
-    state = torch.empty((b, h, p, n), dtype=torch.float32, device=xbar.device)
-    with torch.cuda.device(xbar.device):
-        stream = torch.cuda.current_stream(xbar.device).cuda_stream
+    state = torch.empty((b, h, p, npad), dtype=torch.float32, device=dev)
+    chunk_states = torch.empty((b, s // chunk, h, p, npad),
+                               dtype=torch.float32, device=dev)
+    cum = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(la.data_ptr(), xbar.data_ptr(), B.data_ptr(), C.data_ptr(),
-                y.data_ptr(), state.data_ptr(), b, s, h, p, n, chunk,
-                DTYPES[xbar.dtype], stream)
+                y.data_ptr(), state.data_ptr(), chunk_states.data_ptr(),
+                cum.data_ptr(), B.stride(0), B.stride(1), C.stride(0),
+                C.stride(1), b, s, h, p, npad, chunk, DTYPES[xbar.dtype],
+                stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")
+    if n is not None and n != npad:
+        state = state[..., :n].contiguous()
     return y, state
 
 
@@ -120,7 +151,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     check_inputs(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out = launch(*prepare(x, dt, A, B, C), chunk=chunk)
+    out = launch(*prepare(x, dt, A, B, C), chunk=chunk, n=B.shape[-1])
     global launches
     launches += 1
     return out

@@ -56,6 +56,41 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, kh, sq, sk,
     assert (out.float() - want).abs().max().item() <= atol
 
 
+# The tensor-core (bf16) path at every head dim: rows that see no key (Sq >
+# Sk with a window of 16: rows 143.. get the mean of v), a ragged Sq != Sk,
+# non-causal, and a window that bites at head dim 256.
+# (d, B, H, K, Sq, Sk, causal, window)
+BF16_CASES = [
+    (64, 1, 2, 1, 256, 128, True, 16),
+    (128, 1, 2, 1, 256, 128, True, 16),
+    (256, 1, 2, 1, 256, 128, True, 16),
+    (128, 1, 4, 2, 320, 200, True, None),
+    (256, 1, 4, 1, 200, 333, False, None),
+    (256, 1, 4, 1, 640, 640, True, 128),
+]
+
+
+@pytest.mark.parametrize("d,b,h,kh,sq,sk,causal,window", BF16_CASES)
+def test_flash_attention_bf16_tensor_cores(cuda, d, b, h, kh, sq, sk, causal,
+                                           window):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=cuda)
+               .to(torch.bfloat16).transpose(1, 2)
+               for n, s in ((h, sq), (kh, sk), (kh, sk)))
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, h, sq, d)
+    assert (out.float() - want).abs().max().item() <= 2e-2
+    if sq > sk and window is not None:
+        mean = v.float().mean(2)  # (b, kh, d)
+        assert (out[:, :, -1].float() - mean.repeat_interleave(
+            h // kh, 1)).abs().max().item() <= 2e-2
+
+
 # RecurrentGemma-9B's local attention: head dim 256, MQA, window 2048 (which
 # never bites at S = 512) and 128 (which does)
 @pytest.mark.parametrize("dtype,window,s,atol", [
@@ -76,16 +111,23 @@ def test_flash_attention_head_dim_256(cuda, dtype, window, s, atol):
     assert (out.float() - want).abs().max().item() <= atol
 
 
-# (dtype, b, s, h, p, n, chunk, atol, rtol): the Mamba2-370M prefill shape,
-# three chunks at small p and n, b > 1 with h not a multiple of 8
-@pytest.mark.parametrize("dtype,b,s,h,p,n,chunk,atol,rtol", [
-    (torch.float32, 4, 512, 32, 64, 128, 256, 2e-4, 5e-2),
-    (torch.bfloat16, 4, 512, 32, 64, 128, 256, 2e-1, 5e-2),
-    (torch.float32, 1, 192, 2, 32, 64, 64, 2e-4, 5e-2),
-    (torch.float32, 3, 256, 5, 64, 128, 128, 2e-4, 5e-2),
+# (dtype, b, s, h, p, n, chunk, atol, rtol, views): the Mamba2-370M prefill
+# shape, three chunks at small p and n, b > 1 with h not a multiple of the
+# head group, four chunks (the state pass runs three times), one chunk of
+# 2048, and B and C as column slices of one tensor, as the model passes them
+@pytest.mark.parametrize("dtype,b,s,h,p,n,chunk,atol,rtol,views", [
+    (torch.float32, 4, 512, 32, 64, 128, 256, 2e-4, 5e-2, False),
+    (torch.bfloat16, 4, 512, 32, 64, 128, 256, 2e-1, 5e-2, False),
+    (torch.float32, 1, 192, 2, 32, 64, 64, 2e-4, 5e-2, False),
+    (torch.float32, 3, 256, 5, 64, 128, 128, 2e-4, 5e-2, False),
+    (torch.bfloat16, 2, 256, 5, 64, 128, 128, 2e-1, 5e-2, False),
+    (torch.float32, 2, 1024, 8, 64, 128, 256, 2e-4, 5e-2, False),
+    (torch.float32, 1, 2048, 4, 64, 128, 2048, 2e-4, 5e-2, False),
+    (torch.float32, 2, 512, 32, 64, 128, 256, 2e-4, 5e-2, True),
+    (torch.bfloat16, 2, 192, 3, 128, 96, 96, 2e-1, 5e-2, True),
 ])
 def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk,
-                                       atol, rtol):
+                                       atol, rtol, views):
     g = torch.Generator(device=cuda).manual_seed(2)
 
     def rnd(*shape):
@@ -93,7 +135,12 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk,
     x = (rnd(b, s, h, p) * 0.5).to(dtype)
     dt = torch.nn.functional.softplus(rnd(b, s, h))
     A = -torch.exp(rnd(h) * 0.3)
-    B, C = ((rnd(b, s, n) * 0.3).to(dtype) for _ in range(2))
+    if views:
+        BC = (rnd(b, s, 2 * n + 16) * 0.3).to(dtype)
+        B, C = BC[..., 16:16 + n], BC[..., 16 + n:]
+        assert sk.prepare(x, dt, A, B, C)[2].data_ptr() == B.data_ptr()
+    else:
+        B, C = ((rnd(b, s, n) * 0.3).to(dtype) for _ in range(2))
     before = sk.launches
     y, st = sk.ssd_scan(x, dt, A, B, C, chunk=chunk)
     torch.cuda.synchronize()

@@ -318,3 +318,46 @@ def test_ssd_wrapper_raises_on_an_ineligible_device_call(change, err):
         sk.ssd_scan(x, torch.empty((b, s, h), **meta),
                     torch.empty((h,), **meta), B, B, chunk=64)
     assert sk.launches == 0
+
+
+def test_ssd_prepare_keeps_the_models_column_slices():
+    """B and C are column slices of the convolution output in the model;
+    the kernel reads them through their row stride, so prepare() hands them
+    over as they are, with no copy."""
+    b, s, h, p, n = 2, 64, 4, 32, 16
+    rng = np.random.default_rng(7)
+    conv = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * n))
+                            .astype(np.float32))
+    x, B, C = torch.split(conv, [h * p, n, n], dim=-1)
+    dt = torch.rand((b, s, h))
+    A = -torch.rand(h)
+    la, xbar, kB, kC = sk.prepare(x.reshape(b, s, h, p), dt, A, B, C)
+    assert kB.data_ptr() == B.data_ptr() and kC.data_ptr() == C.data_ptr()
+    assert kB.stride() == B.stride() and not kB.is_contiguous()
+    assert la.is_contiguous() and xbar.is_contiguous()
+    assert la.dtype == torch.float32
+
+
+@pytest.mark.parametrize("n,offset", [(12, 0), (16, 1)])
+def test_ssd_prepare_pads_rows_the_kernel_cannot_copy(n, offset):
+    """A d_state that is not a multiple of 8, or rows off a 16-byte
+    boundary, are copied with n padded by zeros to a multiple of 8; the
+    zero columns change neither y nor the first n columns of the state."""
+    b, s, h, p, chunk = 1, 64, 2, 32, 32
+    rng = np.random.default_rng(8)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x, dt, A = t(b, s, h, p), torch.rand((b, s, h)), -torch.rand(h)
+    BC = t(b, s, 2 * n + offset)
+    B, C = BC[..., offset:offset + n], BC[..., offset + n:]
+    _, _, kB, kC = sk.prepare(x, dt, A, B, C)
+    n8 = -(-n // 8) * 8
+    assert kB.shape == kC.shape == (b, s, n8) and kB.is_contiguous()
+    assert kB.data_ptr() % 16 == 0 and kC.data_ptr() % 16 == 0
+    assert torch.equal(kB[..., :n], B) and not kB[..., n:].any()
+    y, st = ssd_scan_ref(x, dt, A, B, C, chunk)
+    yp, stp = ssd_scan_ref(x, dt, A, kB, kC, chunk)
+    torch.testing.assert_close(yp, y, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(stp[..., :n], st, atol=1e-6, rtol=1e-6)
+    assert not stp[..., n:].any()
