@@ -12,12 +12,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and at edge cases: flash attention
    (head dims 64, 128 and 256), the SSD scan (y and the final state) and
-   the RG-LRU scan.  At the main shapes it times the kernel's wrapper, the
-   kernel alone where the wrapper prepares its inputs, the plain version,
-   the bound, and one library call where one computes the same function
+   the RG-LRU scan (bf16 cases also against the plain version on the same
+   bf16 inputs, output for output).  At the main shapes it times the
+   kernel's wrapper, the kernels alone where the wrapper prepares their
+   inputs (the SSD scan), the plain version, the bound, and one library
+   call where one computes the same function
    (``scaled_dot_product_attention``, a yardstick the port never calls).
    Times are device times (calls captured in a CUDA graph and replayed);
-   the wrapper's time issued from Python call by call stands beside.
+   the wrapper's time issued from Python call by call stands beside.  The
+   RG-LRU wrapper must run exactly one CUDA kernel a call (``torch.profiler``)
+   and its kernel must build without spills.
 4. serve: full-width, full-depth Qwen2-1.5B (28 layers), then Mamba2-370M
    (48 layers) and RecurrentGemma-9B (38 layers), each fp32 with random
    weights from seed 0 and freed before the next, each answering 4 prompts
@@ -55,6 +59,12 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: kernels to their oracles
 SSD_TOL = {"float32": (2e-4, 5e-2), "bfloat16": (2e-1, 5e-2)}
 RGLRU_TOL = {"float32": (1e-4, 3e-2), "bfloat16": (1e-1, 3e-2)}
+#: the largest share of bf16 RG-LRU outputs that may differ from the plain
+#: version on the same bf16 inputs.  Both round i x to bf16 and scan in
+#: fp32 in other orders, so a few outputs land on the other side of a bf16
+#: rounding step (~0.03% in a CPU simulation); an i x kept in fp32 moves
+#: ~30% of them.
+RGLRU_BF16_MISMATCH = 0.01
 ARCHS = ("qwen2-1.5b", "mamba2-370m", "recurrentgemma-9b")
 BATCH, PROMPT, GEN = 4, 512, 32
 
@@ -186,13 +196,11 @@ def ssd_bound_ms(b, s, h, p, n, chunk, dtype, es,
     return bound(flops, nbytes, dtype)
 
 
-def rglru_bound_ms(b, s, w, dtype, es, kernel_only=False):
+def rglru_bound_ms(b, s, w, dtype, es):
     """Bytes: the function reads x, r, i (in ``dtype``) and lam and writes
-    y; the kernel alone reads the fp32 a and b terms and writes y.  Its
-    flops (a dozen elementwise ones per element) weigh nothing beside."""
-    nbytes = (8 + es) * b * s * w if kernel_only \
-        else es * 4 * b * s * w + 4 * w
-    return bound(12.0 * b * s * w, nbytes, dtype)
+    y.  Its flops (a dozen elementwise ones per element) weigh nothing
+    beside."""
+    return bound(12.0 * b * s * w, es * 4 * b * s * w + 4 * w, dtype)
 
 
 def attention_cases():
@@ -259,6 +267,16 @@ def rglru_cases():
         ("ragged w", "float32", 2, 300, 1000, None),
         # softplus(-9) ~ 1.2e-4, so a ~ 0.999: the carry runs the whole way
         ("long s, a near 1", "float32", 1, 2048, 256, -9.0),
+        # odd w: the bf16 kernel loads its two channels one by one
+        ("odd w, short s", "bfloat16", 3, 37, 1001, None),
+        ("ragged w, s 300", "bfloat16", 2, 300, 1000, None),
+        ("s 1", "float32", 2, 1, 4096, None),
+        ("s 1", "bfloat16", 2, 1, 4096, None),
+        # 700 = 2 x 256 + 188: a ragged last super-chunk of the fp32 kernel
+        ("s 700", "float32", 2, 700, 512, None),
+        # softplus(-20) ~ 2e-9: a and exp(2 log_a) round to 1.0 where r is
+        # below ~0.9, so 1 - exp(2 log_a) = 0 and the 1e-12 clamp bites
+        ("lam -20, a = 1", "float32", 2, 512, 256, -20.0),
     ]
 
 
@@ -396,6 +414,21 @@ def phase_ssd(torch, sk, ref, gen):
     return worst, timing
 
 
+def cuda_kernels_per_call(torch, fn, calls=3) -> float:
+    """CUDA kernels that ``torch.profiler`` sees run, per call of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / calls
+
+
 def phase_rglru(torch, rk, ref, gen):
     worst, timing = 0.0, {}
     for name, dt, b, s, w, lam_v in rglru_cases():
@@ -408,37 +441,50 @@ def phase_rglru(torch, rk, ref, gen):
         i = torch.sigmoid(rnd(b, s, w)).to(dtype)
         lam = rnd(w) * 0.5 if lam_v is None else torch.full(
             (w,), lam_v, device="cuda")
+        before = rk.launches
         y = rk.rglru_scan(x, r, i, lam)
+        counted = rk.launches - before
         yr = ref.rglru_ref(x.float(), r.float(), i.float(), lam)
         torch.cuda.synchronize()
-        if y.shape != x.shape or y.dtype != dtype:
-            fail(f"rglru {name}: output {tuple(y.shape)} {y.dtype}")
+        if y.shape != x.shape or y.dtype != dtype or counted != 1:
+            fail(f"rglru {name}: output {tuple(y.shape)} {y.dtype}, "
+                 f"{counted} launches counted")
         if not bool(torch.isfinite(y).all()):
             fail(f"rglru {name}: non-finite output")
         atol, rtol = RGLRU_TOL[dt]
         err, ok = _close(y, yr, atol, rtol)
+        extra = ""
+        if dtype == torch.bfloat16:
+            # the plain version on the same bf16 inputs rounds i x to bf16
+            yb = ref.rglru_ref(x, r, i, lam)
+            errb, okb = _close(y, yb.float(), atol, rtol)
+            share = (y != yb).float().mean().item()
+            ok = ok and okb and share <= RGLRU_BF16_MISMATCH
+            extra = (f"; vs plain on bf16 inputs {errb:.3e}, {share:.4%} of "
+                     f"outputs differ (at most {RGLRU_BF16_MISMATCH:.0%})")
+            err = max(err, errb)
         print(f"  rglru {name:18s} {dt:8s} b={b} s={s} w={w} lam="
               f"{'N(0,0.5)' if lam_v is None else lam_v}: max|err| "
-              f"{err:.3e} (atol {atol:.0e}, rtol {rtol:.0e}) "
+              f"{err:.3e} (atol {atol:.0e}, rtol {rtol:.0e}){extra} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"rglru {name}: max |err| {err}")
+            fail(f"rglru {name}: max |err| {err}{extra}")
         worst = max(worst, err)
         if name.startswith("main"):
-            coef = ref.rglru_coefficients(x, r, i, lam)
-            ms = time_ms(lambda: rk.rglru_scan(x, r, i, lam))
-            kms = time_ms(lambda: rk.launch(*coef, dtype))
+            call = lambda: rk.rglru_scan(x, r, i, lam)  # noqa: E731
+            per_call = cuda_kernels_per_call(torch, call)
+            if per_call != 1:
+                fail(f"rglru {name}: {per_call} CUDA kernels a call, not 1")
+            ms, host_ms = time_ms(call), eager_ms(call)
             plain_ms = time_ms(lambda: ref.rglru_ref(x, r, i, lam), iters=5)
-            es = x.element_size()
-            bnd, by = rglru_bound_ms(b, s, w, dt, es)
-            kbnd, kby = rglru_bound_ms(b, s, w, dt, es, True)
-            timing[dt] = dict(ms=ms, kernel_ms=kms, plain_ms=plain_ms,
-                              library_ms=None, bound_ms=bnd, bound_by=by,
-                              kernel_bound_ms=kbnd)
-            print(f"    time: wrapper {ms:.4f} ms (kernel alone {kms:.4f} "
-                  f"ms), plain {plain_ms:.4f} ms, no library call; bound "
-                  f"{bnd:.4f} ms ({by}), kernel alone {kbnd:.4f} ms ({kby});"
-                  f" wrapper at {bnd / ms:.1%} of the bound")
+            bnd, by = rglru_bound_ms(b, s, w, dt, x.element_size())
+            timing[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              bound_ms=bnd, bound_by=by, max_abs_err=err,
+                              eager_ms=host_ms)
+            print(f"    time: wrapper {ms:.4f} ms, one CUDA kernel a call "
+                  f"(issued from Python one by one {host_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, no library call; bound {bnd:.4f} ms "
+                  f"({by}); wrapper at {bnd / ms:.1%} of the bound")
     return worst, timing
 
 
@@ -630,6 +676,8 @@ def main() -> int:
             if st or ld:
                 spills.append(f"{name}: {fn}")
     print(f"  ptxas spills: {spills or 'none'}")
+    if any(s.startswith("rglru_scan:") for s in spills):
+        fail("the RG-LRU kernel spills registers")
 
     print("== phase 3: kernels vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -673,8 +721,9 @@ def main() -> int:
                     "(Mamba2-370M prefill)", bf16=ssd_t["bfloat16"]),
         entry("rglru_scan", csrc + "rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:70", total["rglru"], rg_worst,
-              rg_t["float32"], kernel_ms=rg_t["float32"]["kernel_ms"],
-              shape="b4 s512 w4096 fp32 (RecurrentGemma-9B prefill)"),
+              rg_t["float32"], cuda_launches_per_call=1,
+              shape="b4 s512 w4096 fp32 (RecurrentGemma-9B prefill)",
+              bf16=rg_t["bfloat16"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -2,11 +2,12 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/rglru_scan.py``
 (``rglru_pallas``, pallas_call at line 70, body ``_kernel``).  Same
-contract: x, r, i (b, s, w), lam (w,); returns h (b, s, w) in x's type.  As
-in the JAX wrapper, a = exp(-8 softplus(lam) r) and
-b = sqrt(max(1 - a^2, 1e-12)) (i x) are formed in fp32 here
-(:func:`repro_torch.kernels.ref.rglru_coefficients`) and the kernel runs
-the recurrence.  It takes any b, s and w, and x of type fp32 or bf16.
+contract: x, r, i (b, s, w), lam (w,); returns h (b, s, w) in x's type.
+One kernel computes the whole function: it reads x, r and i in their own
+type and lam in fp32, forms a = exp(-8 softplus(lam) r) and
+b = sqrt(max(1 - a^2, 1e-12)) (i x) in registers, as the JAX wrapper forms
+them, and writes h once.  It takes any b, s and w, and x of type fp32 or
+bf16 with r and i of the same type.
 
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.rglru_ref`.  On a CUDA tensor it launches the
@@ -21,7 +22,7 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import rglru_coefficients, rglru_ref
+from .ref import rglru_ref
 
 NAME = "rglru_scan"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -37,7 +38,7 @@ def _kernel_fn():
     if _fn is None:
         lib = _build.load(NAME)
         fn = lib.rglru_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
@@ -65,22 +66,26 @@ def check_inputs(x, r, i, lam) -> None:
                          f"{tuple(lam.shape)}")
     if x.dtype not in DTYPES:
         raise TypeError(f"dtype {x.dtype}: need one of {list(DTYPES)}")
+    if r.dtype != x.dtype or i.dtype != x.dtype:
+        raise TypeError(f"r ({r.dtype}) and i ({i.dtype}) must have x's "
+                        f"type {x.dtype}")
+    if lam.dtype != torch.float32:
+        raise TypeError(f"lam must be float32, not {lam.dtype}")
     if not (x.device == r.device == i.device == lam.device):
         raise ValueError("x, r, i, lam must lie on one device")
 
 
-def launch(a, bterm, out_dtype):
-    """One launch of the kernel on fp32 (b, s, w) coefficients -> y in
-    ``out_dtype``.  Counts nothing: :func:`rglru_scan` is the counted entry
-    point."""
+def launch(x, r, i, lam):
+    """One launch of the kernel -> h (b, s, w) in x's type.  Counts
+    nothing: :func:`rglru_scan` is the counted entry point."""
     fn, err_str = _kernel_fn()
-    a, bterm = a.contiguous(), bterm.contiguous()
-    b, s, w = a.shape
-    y = torch.empty((b, s, w), dtype=out_dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), bterm.data_ptr(), y.data_ptr(), b, s, w,
-                DTYPES[out_dtype], stream)
+    x, r, i, lam = (t.contiguous() for t in (x, r, i, lam))
+    b, s, w = x.shape
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), r.data_ptr(), i.data_ptr(), lam.data_ptr(),
+                y.data_ptr(), b, s, w, DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"rglru_scan launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")
@@ -94,7 +99,7 @@ def rglru_scan(x, r, i, lam):
     check_inputs(x, r, i, lam)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    y = launch(*rglru_coefficients(x, r, i, lam), x.dtype)
+    y = launch(x, r, i, lam)
     global launches
     launches += 1
     return y

@@ -152,25 +152,71 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk,
 
 
 # (dtype, b, s, w, lam, atol, rtol): the RecurrentGemma-9B prefill shape, a
-# ragged width, and a long sequence whose a is close to 1
-@pytest.mark.parametrize("dtype,b,s,w,lam,atol,rtol", [
+# ragged width, a long sequence whose a is close to 1; in bf16 an odd width
+# with a short ragged sequence (the kernel loads channel by channel) and an
+# even ragged width; s = 1; s = 700, not a multiple of the fp32 kernel's
+# 256-step super-chunk; and lam = -20, where a rounds to 1 and the 1e-12
+# clamp of 1 - a^2 bites
+RGLRU_CASES = [
     (torch.float32, 4, 512, 4096, None, 1e-4, 3e-2),
     (torch.bfloat16, 4, 512, 4096, None, 1e-1, 3e-2),
     (torch.float32, 2, 300, 1000, None, 1e-4, 3e-2),
     (torch.float32, 1, 2048, 256, -9.0, 1e-4, 3e-2),
-])
-def test_rglru_scan_kernel_matches_plain(cuda, dtype, b, s, w, lam, atol,
-                                         rtol):
-    g = torch.Generator(device=cuda).manual_seed(3)
+    (torch.bfloat16, 3, 37, 1001, None, 1e-1, 3e-2),
+    (torch.bfloat16, 2, 300, 1000, None, 1e-1, 3e-2),
+    (torch.float32, 2, 1, 4096, None, 1e-4, 3e-2),
+    (torch.bfloat16, 2, 1, 4096, None, 1e-1, 3e-2),
+    (torch.float32, 2, 700, 512, None, 1e-4, 3e-2),
+    (torch.float32, 2, 512, 256, -20.0, 1e-4, 3e-2),
+]
+
+
+def _rglru_inputs(cuda, dtype, b, s, w, lam, seed=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=cuda)
     x = (rnd(b, s, w) * 0.5).to(dtype)
     r, i = (torch.sigmoid(rnd(b, s, w)).to(dtype) for _ in range(2))
     lam = rnd(w) * 0.5 if lam is None else torch.full((w,), lam, device=cuda)
+    return x, r, i, lam
+
+
+@pytest.mark.parametrize("dtype,b,s,w,lam,atol,rtol", RGLRU_CASES)
+def test_rglru_scan_kernel_matches_plain(cuda, dtype, b, s, w, lam, atol,
+                                         rtol):
+    x, r, i, lam = _rglru_inputs(cuda, dtype, b, s, w, lam)
     before = rk.launches
     y = rk.rglru_scan(x, r, i, lam)
     torch.cuda.synchronize()
     assert rk.launches == before + 1 and y.dtype == dtype
     want = rglru_ref(x.float(), r.float(), i.float(), lam)
     torch.testing.assert_close(y.float(), want, atol=atol, rtol=rtol)
+    if dtype == torch.bfloat16:
+        # the plain version on the same bf16 inputs rounds i x to bf16, as
+        # the kernel must: then at most a few outputs differ by one rounding
+        # step (an i x kept in fp32 moves ~30% of them)
+        same = rglru_ref(x, r, i, lam)
+        torch.testing.assert_close(y.float(), same.float(), atol=atol,
+                                   rtol=rtol)
+        assert (y != same).float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_runs_one_cuda_kernel_a_call(cuda, dtype):
+    """At the RecurrentGemma-9B prefill shape the wrapper forms a and b in
+    the kernel: the profiler sees one CUDA kernel a call and nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, r, i, lam = _rglru_inputs(cuda, dtype, 4, 512, 4096, None)
+    rk.rglru_scan(x, r, i, lam)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            rk.rglru_scan(x, r, i, lam)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 3, [e.key for e in kernels]
+    assert all("rglru_scan_kernel" in e.key for e in kernels)

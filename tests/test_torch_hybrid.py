@@ -87,12 +87,16 @@ def _scan_inputs(seed, b, s, w, dtype):
 
 
 # the sweep shapes of tests/test_kernels.py, fp32; s = 384 crosses three
-# 128-step chunks of the JAX kernel; one bf16 case
+# 128-step chunks of the JAX kernel; bf16 cases; an odd batch and a width
+# that is not a multiple of 128, in both types
 @pytest.mark.parametrize("dtype,b,s,w,chunk", [
     ("float32", 1, 128, 128, 64),
     ("float32", 2, 256, 256, 128),
     ("float32", 1, 384, 128, 128),
     ("bfloat16", 2, 256, 256, 128),
+    ("float32", 3, 64, 96, 32),
+    ("bfloat16", 3, 64, 96, 32),
+    ("bfloat16", 1, 256, 128, 128),
 ])
 def test_rglru_ref_matches_jax(dtype, b, s, w, chunk):
     (tx, tr, ti, tlam), (jx, jr, ji, jlam) = _scan_inputs(5, b, s, w, dtype)
@@ -388,3 +392,28 @@ def test_rglru_dispatch_and_wrapper_raise_off_the_kernel():
     with pytest.raises(ValueError, match="shape mismatch"):
         rk.rglru_scan(x, x, x, torch.empty((64,), **meta))
     assert rk.launches == 0
+
+
+@pytest.mark.parametrize("arg,dtype", [
+    ("r", torch.bfloat16),
+    ("i", torch.bfloat16),
+    ("lam", torch.bfloat16),
+    ("lam", torch.float64),
+])
+def test_rglru_check_inputs_raises_on_mixed_types(arg, dtype):
+    """The kernel reads r and i in x's type and lam in fp32, and nothing
+    else; what differs raises before any launch."""
+    args = {"x": torch.zeros((2, 8, 16)), "r": torch.zeros((2, 8, 16)),
+            "i": torch.zeros((2, 8, 16)), "lam": torch.zeros(16)}
+    rk.check_inputs(**args)
+    half = {k: v.to(torch.bfloat16) if k != "lam" else v
+            for k, v in args.items()}
+    rk.check_inputs(**half)
+    args[arg] = args[arg].to(dtype)
+    with pytest.raises(TypeError, match=arg):
+        rk.check_inputs(**args)
+    meta = {k: v.to("meta") for k, v in args.items()}
+    with pytest.raises(TypeError, match=arg):
+        rk.rglru_scan(**meta)
+    assert rk.launches == 0
+
