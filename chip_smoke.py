@@ -32,7 +32,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    none, the teacher-forced decode logits must agree with prefill's, and
    prefill must agree with the plain path (policy ``ref``) on the card.
    Then "where the time goes" for each model.
-5. the kernels line, then the card line, then the result line.
+5. graph-IR training (``block_program`` -> ``Program.compile_train`` ->
+   ``Session.train_step`` -> ``TorchExecutor``): full-width Qwen2-1.5B
+   blocks (2 layers, batch 4, seq 512, weights from seed 0 with numpy)
+   under dp2 x tp2, four virtual devices stacked as rows on the one GPU,
+   three steps.  B1 must launch once per layer per step (layers x
+   attention classes; the wrapper's count and the executor's tally), step
+   1's loss and every gradient must agree with the port's
+   ``SimulatorExecutor`` run in numpy on the host at the same size (loss
+   rtol 1e-5, gradients atol 1e-6 and rtol 2e-4 as ``tests/test_archs.py``
+   holds the graph IR, and each gradient's normwise relative error at most
+   2e-4, the key biases' excepted: at the full vocabulary every gradient
+   lies below that atol, and the key-bias gradient is zero), and
+   the loss must be finite and change from step to step.  Then where the
+   step's time goes (host clock with the device synchronized at each
+   boundary, and ``torch.profiler``), peak memory, and B1 at this path's
+   shape against its plain version, its bound and SDPA.  Last, reduced
+   Llama under tp2 x pp2 with two microbatches (1f1b): B1 once per layer
+   per microbatch, and the same agreement with the simulator.
+6. the kernels line, then the card line, then the result line.
 
 Needs a visible CUDA device and the repository's ``src/`` beside it; it
 imports nothing of JAX and nothing of the JAX package.
@@ -67,6 +85,16 @@ RGLRU_TOL = {"float32": (1e-4, 3e-2), "bfloat16": (1e-1, 3e-2)}
 RGLRU_BF16_MISMATCH = 0.01
 ARCHS = ("qwen2-1.5b", "mamba2-370m", "recurrentgemma-9b")
 BATCH, PROMPT, GEN = 4, 512, 32
+#: phase 5: graph-IR training of full-width Qwen2-1.5B blocks
+IR_LAYERS, IR_BATCH, IR_SEQ = 2, 4, 512
+#: step 1 against the simulator: the tolerance ``tests/test_archs.py``
+#: holds the graph IR's loss and gradients to ...
+LOSS_RTOL, GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-6, 2e-4
+#: ... and, because at the full 151936-token vocabulary every gradient
+#: lies below that atol (the loss is a mean of probabilities near 1/vocab),
+#: a normwise bound on each gradient's relative error as well (key biases
+#: excepted: their gradient is mathematically zero)
+GRAD_NORM_RTOL = 2e-4
 
 
 def fail(msg: str):
@@ -633,6 +661,283 @@ def where_the_time_goes(torch, cfg, params, prompts, steps=8):
             print(f"    {ms:8.3f} ms  {key[:90]}")
 
 
+def block_weights(prog, rng):
+    """Norm weights at one, the rest N(0, 0.05^2), drawn in parameter
+    order as ``tests/test_archs.py`` draws them."""
+    import numpy as np
+    return {t.name: np.ones(t.shape, np.float32)
+            if "norm" in t.name.split("/")[-1]
+            else (rng.standard_normal(t.shape) * 0.05).astype(np.float32)
+            for t in prog.graph.parameters()}
+
+
+def block_feeds(cfg, rng, batch, seq):
+    import numpy as np
+    return {"ids": rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab, (batch, seq))
+            .astype(np.int32)}
+
+
+def check_against_simulator(what, got, want_loss, want_grads):
+    """Step 1's loss and every gradient against the simulator's: the
+    elementwise tolerance of ``tests/test_archs.py`` and, since at full
+    vocabulary the gradients are far below its atol, the normwise
+    relative error ||got - want|| / ||want|| <= GRAD_NORM_RTOL as well,
+    except for the key biases: their gradient is mathematically zero
+    (softmax is shift-invariant along the keys), so both sides are
+    rounding noise and only the elementwise tolerance applies."""
+    import numpy as np
+    lerr = abs(got.loss - want_loss) / abs(want_loss)
+    worst, worst_name, bad = 0.0, None, []
+    for name, want in want_grads.items():
+        g = got.grad_value(name)
+        if g.shape != want.shape or not np.isfinite(g).all():
+            fail(f"{what}: grad {name} shape {g.shape} or non-finite")
+        if not np.allclose(g, want, atol=GRAD_ATOL, rtol=GRAD_RTOL):
+            bad.append(name)
+        if name.endswith("/bk"):
+            continue
+        norm = float(np.linalg.norm(want.astype(np.float64)))
+        rel = float(np.linalg.norm((g - want).astype(np.float64))) / norm \
+            if norm else float(np.abs(g).max())
+        if rel > worst:
+            worst, worst_name = rel, name
+    ok = lerr <= LOSS_RTOL and not bad and worst <= GRAD_NORM_RTOL
+    print(f"  {what} vs SimulatorExecutor: loss {got.loss:.9e} vs "
+          f"{want_loss:.9e} (rel {lerr:.2e}, rtol {LOSS_RTOL:.0e}); "
+          f"{len(want_grads)} grads within atol {GRAD_ATOL:.0e} rtol "
+          f"{GRAD_RTOL:.0e}: {'all' if not bad else bad}; worst normwise "
+          f"relative error {worst:.2e} ({worst_name}; limit "
+          f"{GRAD_NORM_RTOL:.0e}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what}: step 1 disagrees with the simulator")
+
+
+def device_breakdown(prof):
+    """Device time of the profiled window by kind: the flash kernel, the
+    GEMMs, host<->device copies and the rest (elementwise, gathers,
+    reductions); in ms, with the launch count and the six heaviest."""
+    from torch.autograd import DeviceType
+    parts = {"flash (B1)": 0.0, "GEMM": 0.0, "copy host<->device": 0.0,
+             "other kernels": 0.0}
+    launches, top = 0, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = (getattr(e, "self_device_time_total", None)
+              or e.self_cuda_time_total) / 1e3
+        key = e.key.lower()
+        launches += e.count
+        top.append((ms, e.key))
+        if "flash_" in key:
+            parts["flash (B1)"] += ms
+        elif "gemm" in key or "cutlass" in key:
+            parts["GEMM"] += ms
+        elif "memcpy" in key and ("htod" in key or "dtoh" in key):
+            parts["copy host<->device"] += ms
+        else:
+            parts["other kernels"] += ms
+    return parts, launches, sorted(top, reverse=True)[:6]
+
+
+def phase_graph_ir(torch, fa, ref):
+    """Graph-IR training on ``TorchExecutor``: full-width Qwen2-1.5B
+    blocks under dp2 x tp2, then reduced Llama under tp2 x pp2 with two
+    microbatches.  Returns B1's launches on this path and its timings at
+    the path's shape."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.models.graph_block import block_program
+    from repro_torch.optim import adamw
+
+    cfg = get_config("qwen2-1.5b")
+    print(f"== phase 5: graph-IR training, {cfg.name} full width "
+          f"(d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), {IR_LAYERS} "
+          f"layers, batch {IR_BATCH}, seq {IR_SEQ}, dp2 x tp2 on 4 virtual "
+          f"devices stacked on the one GPU")
+    prog = block_program(cfg, batch=IR_BATCH, seq=IR_SEQ, n_layers=IR_LAYERS,
+                         dp=2, tp=2, pp=1)
+    rng = np.random.default_rng(0)
+    feeds = block_feeds(cfg, rng, IR_BATCH, IR_SEQ)
+    ws = block_weights(prog, rng)
+    print(f"  {sum(w.size for w in ws.values()) / 1e6:.1f} M parameters, "
+          f"random from seed 0 (numpy)")
+
+    # the reference: the port's SimulatorExecutor, in numpy on the host
+    t0 = time.perf_counter()
+    sim = api.Session(prog, 0, executor=api.SimulatorExecutor())
+    sim.load(ws)
+    want = sim.train_step(dict(feeds))
+    want_loss = want.loss
+    want_grads = {n: want.grad_value(n) for n in ws}
+    print(f"  SimulatorExecutor step 1 on the host: "
+          f"{time.perf_counter() - t0:.1f} s, loss {want_loss:.9e}")
+    del sim, want
+
+    ex = api.TorchExecutor()
+    sess = api.Session(prog, 0, executor=ex)
+    sess.load(ws)
+    tplan = prog.compile_train(0)
+    fetch = [tplan.loss_name] + [tplan.grad_map[t.name]
+                                 for t in tplan.graph.parameters()]
+    stats = ex.lowered(tplan, fetch).stats
+    classes = stats.kernel_dispatches
+    print(f"  lowered: {stats.compute_segments} segments "
+          f"({stats.straightline_segments} one class over every row), "
+          f"{stats.stages} comm stages ({stats.uniform_reduce_stages} "
+          f"whole-buffer reduces, {stats.uniform_copy_stages} whole-buffer "
+          f"copies), attention classes: {classes} on B1, "
+          f"{stats.ref_dispatches} on the plain version")
+    if classes != IR_LAYERS or stats.ref_dispatches:
+        fail(f"graph IR: expected {IR_LAYERS} attention classes on B1 "
+             f"(one per layer), got {classes} and {stats.ref_dispatches} "
+             f"plain")
+
+    opt_s = []
+    apply_updates = adamw.sharded_apply_updates
+
+    def timed_updates(*args, **kw):
+        t = time.perf_counter()
+        out = apply_updates(*args, **kw)
+        opt_s.append(time.perf_counter() - t)
+        return out
+
+    adamw.sharded_apply_updates = timed_updates
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, per_step = [], [], []
+    fa.launches = 0
+    ex.kernel_launches = 0
+    try:
+        for step in range(3):
+            before, ex_before = fa.launches, ex.kernel_launches
+            ex.times.reset()
+            profiled = step == 2
+            ex.times.sync = profiled
+            t0 = time.perf_counter()
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    r = sess.train_step(dict(feeds))
+                    torch.cuda.synchronize()
+            else:
+                r = sess.train_step(dict(feeds))
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_step.append((fa.launches - before,
+                             ex.kernel_launches - ex_before))
+            losses.append(r.loss)
+            if step == 0:
+                check_against_simulator("Qwen2-1.5B dp2 x tp2 step 1", r,
+                                        want_loss, want_grads)
+            parts = ex.times.as_dict()
+            print(f"  step {step + 1}: loss {r.loss:.9e}, "
+                  f"{walls[-1] * 1e3:.1f} ms{' (profiled)' if profiled else ''}"
+                  f", grad norm {r.metrics['grad_norm']:.3e}, B1 launches "
+                  f"{per_step[-1][0]} (executor's tally {per_step[-1][1]})")
+    finally:
+        adamw.sharded_apply_updates = apply_updates
+        ex.times.sync = False
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(p != (IR_LAYERS, IR_LAYERS) for p in per_step):
+        fail(f"graph IR: B1 launches per step {per_step}, expected "
+             f"{IR_LAYERS} (layers x classes) from the wrapper and the "
+             f"executor")
+    if not all(np.isfinite(losses)) or len(set(losses)) != len(losses):
+        fail(f"graph IR: losses {losses} not finite or not changing")
+    other = walls[2] - sum(parts[p] for p in ("pack", "compute", "comm",
+                                              "fetch")) - opt_s[2]
+    print(f"  step time (host clock, synchronized): step 1 "
+          f"{walls[0] * 1e3:.1f} ms, step 2 {walls[1] * 1e3:.1f} ms; peak "
+          f"memory {peak:.2f} GiB")
+    print(f"  where step 3's {walls[2] * 1e3:.1f} ms go (host clock, device "
+          f"synchronized at each boundary): pack numpy shards + copy to the "
+          f"device {parts['pack'] * 1e3:.1f} ms; compute segments "
+          f"{parts['compute'] * 1e3:.1f} ms (of which B1 "
+          f"{parts['attention'] * 1e3:.2f} ms); comm row moves "
+          f"{parts['comm'] * 1e3:.1f} ms; copy fetches to the host + unpack "
+          f"{parts['fetch'] * 1e3:.1f} ms; host numpy AdamW "
+          f"{opt_s[2] * 1e3:.1f} ms; the rest of the session "
+          f"{other * 1e3:.1f} ms")
+    dev, n_launch, top = device_breakdown(prof)
+    busy = sum(dev.values())
+    print(f"  step 3 on the device (torch.profiler): {busy:.1f} ms of "
+          f"{walls[2] * 1e3:.1f} ms host ({busy / (walls[2] * 1e3):.1%} "
+          f"busy), {n_launch} device activities: " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in dev.items()))
+    for ms_, key in top:
+        print(f"    {ms_:9.3f} ms  {key[:90]}")
+    print(f"  host numpy AdamW per step: "
+          + ", ".join(f"{s * 1e3:.1f} ms" for s in opt_s))
+
+    # B1 at this path's shape: the four device rows fold into the batch
+    b, h, kh = IR_BATCH // 2 * 4, cfg.n_heads // 2, cfg.n_kv_heads // 2
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((b, h, IR_SEQ, cfg.hd), generator=gen, device="cuda")
+    k = torch.randn((b, kh, IR_SEQ, cfg.hd), generator=gen, device="cuda")
+    v = torch.randn((b, kh, IR_SEQ, cfg.hd), generator=gen, device="cuda")
+    out = fa.flash_attention(q, k, v, causal=True)
+    err = (out - ref.flash_attention_ref(q, k, v, causal=True)).abs().max() \
+        .item()
+    if err > TOL["float32"]:
+        fail(f"flash at the graph-IR shape: max |err| {err}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    bnd, by = attention_bound_ms(q, k, True, None)
+    shape = (f"B{b} H{h} K{kh} S{IR_SEQ} D{cfg.hd} causal fp32 (graph-IR "
+             f"Qwen2-1.5B dp2 x tp2: 4 device rows folded into the batch)")
+    print(f"  B1 at {shape}: max|err| {err:.3e}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bnd:.4f} ms "
+          f"({by}); {IR_LAYERS} launches a step = "
+          f"{IR_LAYERS * ms:.3f} ms of the step")
+    timing = dict(shape=shape, launches=launches, ms=ms, plain_ms=plain_ms,
+                  library_ms=lib_ms, bound_ms=bnd, bound_by=by,
+                  max_abs_err=err)
+    del sess, ex, q, k, v, out
+    torch.cuda.empty_cache()
+
+    # the pipeline path: reduced Llama, tp2 x pp2, two microbatches, 1f1b
+    lcfg = get_config("llama_32b").reduced()
+    print(f"  {lcfg.name} reduced ({lcfg.n_layers} layers, d_model "
+          f"{lcfg.d_model}, {lcfg.n_heads} heads of {lcfg.hd}), batch "
+          f"{IR_BATCH}, seq {IR_SEQ}, tp2 x pp2, 2 microbatches, 1f1b")
+    lprog = block_program(lcfg, batch=IR_BATCH, seq=IR_SEQ, dp=1, tp=2, pp=2)
+    rng = np.random.default_rng(0)
+    lfeeds = block_feeds(lcfg, rng, IR_BATCH, IR_SEQ)
+    lws = block_weights(lprog, rng)
+    sim = api.Session(lprog, 0, executor=api.SimulatorExecutor())
+    sim.load(lws)
+    want = sim.train_step(dict(lfeeds), num_microbatches=2)
+    lex = api.TorchExecutor()
+    lsess = api.Session(lprog, 0, executor=lex)
+    lsess.load(lws)
+    before = fa.launches
+    t0 = time.perf_counter()
+    r = lsess.train_step(dict(lfeeds), num_microbatches=2, schedule="1f1b")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = fa.launches - before
+    want_launches = lcfg.n_layers * 2
+    print(f"  step: {wall * 1e3:.1f} ms, B1 launches {got} (executor's "
+          f"tally {lex.kernel_launches}; expected {want_launches}: layers x "
+          f"one class x 2 microbatches)")
+    if got != want_launches or lex.kernel_launches != want_launches:
+        fail(f"graph IR pipeline: B1 launches {got} / "
+             f"{lex.kernel_launches}, expected {want_launches}")
+    check_against_simulator("Llama reduced tp2 x pp2 m=2",
+                            r, want.loss, {n: want.grad_value(n)
+                                           for n in lws})
+    timing["launches"] += got
+    return timing
+
+
 def main() -> int:
     try:
         import torch
@@ -687,6 +992,8 @@ def main() -> int:
 
     paths = {arch: phase_serve(torch, policy, arch) for arch in ARCHS}
     total = {k: sum(p[k] for p in paths.values()) for k in paths[ARCHS[0]]}
+    ir = phase_graph_ir(torch, fa, ref)
+    total["flash"] += ir["launches"]
 
     def entry(name, source, replaces, launches, worst, t, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -704,6 +1011,7 @@ def main() -> int:
                   "(RecurrentGemma-9B prefill)",
          "launches": paths["recurrentgemma-9b"]["flash"],
          **fa_t[(256, "float32")]},
+        ir,
         {"shape": "B4 H12 K2 S512 D128 causal bf16 (tensor cores)",
          "launches": 0, **fa_t[(128, "bfloat16")]},
         {"shape": "B4 H16 K1 S512 D256 causal window 2048 bf16 (tensor "

@@ -1,5 +1,7 @@
 """The port's CUDA kernels (flash attention, SSD scan, RG-LRU scan) against
-their plain versions on the card.
+their plain versions on the card, and the graph-IR path on the card: B1
+once per specialization class, ``embed_grad``'s ordered adds and the comm
+lowering's ordered float64 fold.
 
 Marked ``gpu``: they need an NVIDIA Hopper GPU and ``nvcc``, and skip
 elsewhere.  Run them on the card with
@@ -220,3 +222,99 @@ def test_rglru_scan_runs_one_cuda_kernel_a_call(cuda, dtype):
                if e.device_type == DeviceType.CUDA]
     assert sum(e.count for e in kernels) == 3, [e.key for e in kernels]
     assert all("rglru_scan_kernel" in e.key for e in kernels)
+
+
+@pytest.mark.parametrize("arch,par,m", [
+    ("qwen2_1_5b", dict(dp=2, tp=2, pp=1), 1),
+    ("llama_32b", dict(dp=1, tp=2, pp=2), 2)])
+def test_graph_block_attention_runs_the_kernel_per_class(cuda, arch, par, m):
+    """The graph IR's attention launches B1 (not the plain version) once
+    per specialization class per layer per microbatch on the card, and
+    the step trains to the port's simulator."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.models.graph_block import block_program
+
+    cfg = get_config(arch).reduced()
+    b, s = 2, 128
+    rng = np.random.default_rng(0)
+    feeds = {"ids": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    prog = block_program(cfg, batch=b, seq=s, **par)
+    ws = {t.name: np.ones(t.shape, np.float32)
+          if "norm" in t.name.split("/")[-1]
+          else (rng.standard_normal(t.shape) * 0.05).astype(np.float32)
+          for t in prog.graph.parameters()}
+    results = {}
+    for ex in (api.SimulatorExecutor(), api.TorchExecutor()):
+        sess = api.Session(prog, 0, executor=ex)
+        sess.load(ws)
+        before = fa.launches
+        results[ex.name] = sess.train_step(dict(feeds), num_microbatches=m)
+        launched = fa.launches - before
+    tplan = prog.compile_train(0, num_microbatches=m)
+    lw = ex.lowered(tplan, [tplan.loss_name] + [
+        tplan.grad_map[t.name] for t in tplan.graph.parameters()], m)
+    assert lw.stats.kernel_dispatches == cfg.n_layers
+    assert lw.stats.ref_dispatches == 0
+    assert launched == ex.kernel_launches == cfg.n_layers * m
+    want, got = results["sim"], results["torch"]
+    np.testing.assert_allclose(got.loss, want.loss, rtol=1e-5, atol=1e-9)
+    for n in ws:
+        np.testing.assert_allclose(got.grad_value(n), want.grad_value(n),
+                                   atol=1e-6, rtol=2e-4, err_msg=n)
+
+
+def test_embed_grad_adds_duplicates_in_np_add_at_order_on_the_card(cuda):
+    """``index_add_`` alone sums duplicate rows in no fixed order on the
+    GPU; the port adds them first occurrence first, as ``np.add.at``
+    does, bit for bit on non-integer rows."""
+    import numpy as np
+
+    from repro_torch.runtime import torch_ops
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 50, (4096,)).astype(np.int32)
+    dy = rng.standard_normal((4096, 64)).astype(np.float32)
+    want = np.zeros((50, 64), np.float32)
+    np.add.at(want, ids, dy)
+    got = torch_ops.local_apply(
+        "embed_grad", [torch.from_numpy(dy).to(cuda),
+                       torch.from_numpy(ids).to(cuda)], {}, (50, 64))
+    assert got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("kind,n", [("AR", 4), ("AR", 8), ("RS", 8)])
+def test_exact_reduction_folds_in_srcs_order_on_the_card(cuda, kind, n):
+    """Summands that cancel (1e17, -1e17 and small values in a random
+    order per element): the card's float64 fold must follow ``srcs``
+    order to equal the simulator bit for bit."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.core.annotations import DS, DUP, PARTIAL, spmd
+    from repro_torch.core.simulator import scatter
+
+    def cancelling(value, k, rng):
+        big = np.full(value.shape, 1e17, value.dtype)
+        pieces = np.stack([big, -big] + [
+            rng.normal(size=value.shape).astype(value.dtype)
+            for _ in range(k - 2)])
+        return list(rng.permuted(pieces, axis=0))
+
+    src = spmd(range(n), DS({PARTIAL: n}))
+    dst = spmd(range(n), DS({DUP: n} if kind == "AR" else {0: n}))
+    st = scatter(np.zeros((64, 32), np.float32), src,
+                 rng=np.random.default_rng(5), decompose=cancelling)
+    g = api.Graph()
+    g.placeholder("X", (64, 32))
+    g.comm(g.tensors["X"], name="Y")
+    prog = api.Program(g, [api.Strategy("s", {"X": src, "Y": dst})])
+    outs = {ex.name: api.Session(prog, "s", executor=ex).run(
+        {"X": st}).shards("Y")
+        for ex in (api.SimulatorExecutor(), api.TorchExecutor())}
+    for dev, arr in outs["sim"].parts.items():
+        assert np.array_equal(outs["torch"].parts[dev], arr), dev

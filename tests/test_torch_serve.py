@@ -99,3 +99,31 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(sources) > 10
     for path in sources:
         assert not banned.search(path.read_text()), path
+
+
+_IMPORT_ONE = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "repro" or k.startswith("repro."))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+@pytest.mark.parametrize("modules", [
+    ("repro_torch.api", "repro_torch.runtime.program"),
+    ("repro_torch.core",), ("repro_torch.runtime",), ("repro_torch.optim",),
+    ("repro_torch.optim.adamw", "repro_torch.models.graph_block")],
+    ids=lambda m: "+".join(m))
+def test_graph_ir_half_imports_no_jax_and_no_reference_package(modules):
+    """A fresh process that imports only the graph-IR half of the port
+    (the planning copies, the torch runtime, the optimizer) holds neither
+    ``jax`` nor any ``repro.*`` module."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, *modules],
+                          cwd=ROOT, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
