@@ -36,8 +36,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``Session.train_step`` -> ``TorchExecutor``): full-width Qwen2-1.5B
    blocks (2 layers, batch 4, seq 512, weights from seed 0 with numpy)
    under dp2 x tp2, four virtual devices stacked as rows on the one GPU,
-   three steps.  B1 must launch once per layer per step (layers x
-   attention classes; the wrapper's count and the executor's tally), step
+   three steps.  B1 must launch once per layer per step (the wrapper's
+   count, against the lowered graph's layers x attention classes), step
    1's loss and every gradient must agree with the port's
    ``SimulatorExecutor`` run in numpy on the host at the same size (loss
    rtol 1e-5, gradients atol 1e-6 and rtol 2e-4 as ``tests/test_archs.py``
@@ -751,7 +751,6 @@ def phase_graph_ir(torch, fa, ref):
     from repro_torch import api
     from repro_torch.configs import get_config
     from repro_torch.models.graph_block import block_program
-    from repro_torch.optim import adamw
 
     cfg = get_config("qwen2-1.5b")
     print(f"== phase 5: graph-IR training, {cfg.name} full width "
@@ -797,24 +796,13 @@ def phase_graph_ir(torch, fa, ref):
              f"(one per layer), got {classes} and {stats.ref_dispatches} "
              f"plain")
 
-    opt_s = []
-    apply_updates = adamw.sharded_apply_updates
-
-    def timed_updates(*args, **kw):
-        t = time.perf_counter()
-        out = apply_updates(*args, **kw)
-        opt_s.append(time.perf_counter() - t)
-        return out
-
-    adamw.sharded_apply_updates = timed_updates
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    losses, walls, per_step = [], [], []
+    losses, walls, per_step, opt_s = [], [], [], []
     fa.launches = 0
-    ex.kernel_launches = 0
     try:
         for step in range(3):
-            before, ex_before = fa.launches, ex.kernel_launches
+            before = fa.launches
             ex.times.reset()
             profiled = step == 2
             ex.times.sync = profiled
@@ -828,8 +816,8 @@ def phase_graph_ir(torch, fa, ref):
                 r = sess.train_step(dict(feeds))
                 torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            per_step.append((fa.launches - before,
-                             ex.kernel_launches - ex_before))
+            per_step.append(fa.launches - before)
+            opt_s.append(r.update_seconds)
             losses.append(r.loss)
             if step == 0:
                 check_against_simulator("Qwen2-1.5B dp2 x tp2 step 1", r,
@@ -838,16 +826,15 @@ def phase_graph_ir(torch, fa, ref):
             print(f"  step {step + 1}: loss {r.loss:.9e}, "
                   f"{walls[-1] * 1e3:.1f} ms{' (profiled)' if profiled else ''}"
                   f", grad norm {r.metrics['grad_norm']:.3e}, B1 launches "
-                  f"{per_step[-1][0]} (executor's tally {per_step[-1][1]})")
+                  f"{per_step[-1]} (the lowered graph dispatches "
+                  f"{classes})")
     finally:
-        adamw.sharded_apply_updates = apply_updates
         ex.times.sync = False
     launches = fa.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if any(p != (IR_LAYERS, IR_LAYERS) for p in per_step):
+    if any(p != classes for p in per_step):
         fail(f"graph IR: B1 launches per step {per_step}, expected "
-             f"{IR_LAYERS} (layers x classes) from the wrapper and the "
-             f"executor")
+             f"{classes} (layers x classes)")
     if not all(np.isfinite(losses)) or len(set(losses)) != len(losses):
         fail(f"graph IR: losses {losses} not finite or not changing")
     other = walls[2] - sum(parts[p] for p in ("pack", "compute", "comm",
@@ -918,6 +905,9 @@ def phase_graph_ir(torch, fa, ref):
     lex = api.TorchExecutor()
     lsess = api.Session(lprog, 0, executor=lex)
     lsess.load(lws)
+    ltplan = lprog.compile_train(0, num_microbatches=2)
+    lstats = lex.lowered(ltplan, [ltplan.loss_name] + [
+        ltplan.grad_map[t.name] for t in ltplan.graph.parameters()], 2).stats
     before = fa.launches
     t0 = time.perf_counter()
     r = lsess.train_step(dict(lfeeds), num_microbatches=2, schedule="1f1b")
@@ -925,12 +915,15 @@ def phase_graph_ir(torch, fa, ref):
     wall = time.perf_counter() - t0
     got = fa.launches - before
     want_launches = lcfg.n_layers * 2
-    print(f"  step: {wall * 1e3:.1f} ms, B1 launches {got} (executor's "
-          f"tally {lex.kernel_launches}; expected {want_launches}: layers x "
-          f"one class x 2 microbatches)")
-    if got != want_launches or lex.kernel_launches != want_launches:
-        fail(f"graph IR pipeline: B1 launches {got} / "
-             f"{lex.kernel_launches}, expected {want_launches}")
+    print(f"  step: {wall * 1e3:.1f} ms, B1 launches {got} (the lowered "
+          f"graph dispatches {lstats.kernel_dispatches} a microbatch; "
+          f"expected {want_launches}: layers x one class x 2 microbatches)")
+    if got != want_launches or \
+            lstats.kernel_dispatches * 2 != want_launches or \
+            lstats.ref_dispatches:
+        fail(f"graph IR pipeline: B1 launches {got}, dispatches "
+             f"{lstats.kernel_dispatches} on B1 and "
+             f"{lstats.ref_dispatches} plain, expected {want_launches}")
     check_against_simulator("Llama reduced tp2 x pp2 m=2",
                             r, want.loss, {n: want.grad_value(n)
                                            for n in lws})

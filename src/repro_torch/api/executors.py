@@ -284,22 +284,21 @@ class TorchExecutor:
     microbatch count).
 
     ``times`` accumulates the host-clock parts of every run (packing and
-    copying leaves to the device, compute, comm, fetching), and
-    ``kernel_launches`` the flash-attention (B1) launches the runs made:
-    the executor's own tally, beside the kernel wrapper's count."""
+    copying leaves to the device, compute, comm, fetching).  B1's
+    launches are counted where they happen, in the kernel wrapper
+    (``kernels.flash_attention.launches``); the lowered graph's
+    ``stats.kernel_dispatches`` says how many a run should make."""
 
     name = "torch"
     supported_schedules = SCHEDULES
 
-    def __init__(self, device=None, *, reduction: str = "exact"):
+    def __init__(self, device=None):
         import weakref
 
         from repro_torch.device import resolve_device
         from repro_torch.runtime.program import RunTimes
         self.device = resolve_device(device)
-        self.reduction = reduction
         self.times = RunTimes()
-        self.kernel_launches = 0
         # keyed by the CompiledPlan object itself (weakly, so dropped
         # plans evict their lowered graphs and dead ids can't alias)
         self._cache: "weakref.WeakKeyDictionary[CompiledPlan, dict]" = \
@@ -320,25 +319,17 @@ class TorchExecutor:
                               device=self.device,
                               shape_env=compiled.shape_env,
                               topology=compiled.topology,
-                              reduction=self.reduction,
                               fetches=list(fetches) if fetches else None,
                               num_microbatches=num_microbatches,
                               times=self.times)
             per_plan[key] = lw
         return lw
 
-    def _counted(self, lw, fn, *args):
-        before = lw.kernel_launches
-        out = fn(*args)
-        self.kernel_launches += lw.kernel_launches - before
-        return out
-
     def run(self, compiled: CompiledPlan,
             state: dict[str, ShardedTensor],
             fetches: Sequence[str] | None = None
             ) -> dict[str, ShardedTensor]:
-        lw = self.lowered(compiled, fetches)
-        return self._counted(lw, lw.run, state)
+        return self.lowered(compiled, fetches).run(state)
 
     def run_schedule(self, compiled: CompiledPlan,
                      schedule: PipelineSchedule,
@@ -356,7 +347,7 @@ class TorchExecutor:
                 f"{schedule.num_microbatches}-microbatch schedule")
         lw = self.lowered(compiled, fetches,
                           num_microbatches=len(states))
-        return self._counted(lw, lw.run_microbatches, list(states))
+        return lw.run_microbatches(list(states))
 
 
 def _executor_registry() -> dict:

@@ -26,7 +26,7 @@ from repro_torch.core.switching import SwitchReport
 from repro_torch.core.switching import switch as core_switch
 from repro_torch.core.topology import Topology
 
-from .executors import Executor, SimulatorExecutor
+from .executors import Executor, TorchExecutor
 from .program import CompiledPlan, Program
 from .strategy import Strategy
 
@@ -35,13 +35,16 @@ from .strategy import Strategy
 class TrainResult:
     """One training step's outcome: the (global) loss, the gradient
     shards that produced the update, optimizer metrics (grad_norm, lr),
-    and — for microbatched steps — the executed pipeline timetable."""
+    and — for microbatched steps — the executed pipeline timetable.
+    ``update_seconds`` is the host-clock time of the AdamW update, which
+    runs in numpy on the host."""
 
     loss: float
     grads: dict[str, ShardedTensor]
     metrics: dict[str, float]
     schedule: PipelineSchedule | None = None
     outputs: dict[str, ShardedTensor] | None = None  # extra fetches
+    update_seconds: float = 0.0
 
     @property
     def stats(self) -> "ScheduleStats | None":
@@ -97,7 +100,8 @@ class MeasuredStep:
 
 
 class Session:
-    """Live sharded state for one Program, on one Executor."""
+    """Live sharded state for one Program, on one Executor: by default
+    ``TorchExecutor()``, which runs on ``cuda`` and raises without a GPU."""
 
     def __init__(self, program: Program, strategy: "Strategy | str | int",
                  *, executor: Executor | None = None,
@@ -105,7 +109,7 @@ class Session:
                  topology: Topology | None = None, seed: int = 0,
                  optimizer=None):
         self.program = program
-        self.executor: Executor = executor or SimulatorExecutor()
+        self.executor: Executor = executor or TorchExecutor()
         self.shape_env = dict(shape_env or {})
         self.topology = topology
         self.seed = seed
@@ -327,12 +331,14 @@ class Session:
         grads = {p: outs[g] for p, g in zip(params, grad_fetch)}
         if self.opt_state is None:
             self.opt_state = init_sharded_state(self.weights)
+        t0 = time.perf_counter()
         self.weights, self.opt_state, metrics = sharded_apply_updates(
             self.weights, grads, self.opt_state, self.optimizer)
+        update_seconds = time.perf_counter() - t0
         metrics["loss"] = loss_value
         extra = {f: outs[f] for f in fetches}
         return TrainResult(loss_value, grads, metrics, schedule=sched,
-                           outputs=extra)
+                           outputs=extra, update_seconds=update_seconds)
 
     def measure_train_step(self, feeds: Mapping[str, object] | None = None,
                            *, repeats: int = 3, warmup: int = 1,

@@ -11,13 +11,12 @@ The decision for attention is memoized per distinct (q, kv) shape pair and
 device type, as ``repro.kernels.policy.select_attention_impl_per_class``
 memoizes it per shard-shape pair; :func:`set_policy` clears the memo.
 
-The graph IR's ``attention`` op asks :func:`select_attention_impl_per_class`
-once per specialization class, with the class's device-local shapes.  It
-copies the JAX gate (``repro/kernels/policy.py:52-88``): where the JAX gate
-would send the shards to the Pallas kernel (the policy sends the device to
-the kernels and :func:`jax_attention_eligible` holds), the port sends them
-to B1, and raises where B1 cannot take them; elsewhere it runs the plain
-version.
+The graph IR's ``attention`` op asks :func:`select_attention_impl` once
+per specialization class, with the class's device-local shapes, as the JAX
+package's ``select_attention_impl_per_class`` does (memoized, part of the
+class partition).  B1 decides by its own rule, :func:`attention_eligible`:
+it masks ragged tiles, so it takes shapes that the Pallas kernel's tiling
+rule refuses, and a CUDA class it cannot take raises.
 """
 
 from __future__ import annotations
@@ -119,30 +118,3 @@ def select_rglru_impl(x_shape, device) -> str:
     kernel cannot take on a device the policy sends to the kernels."""
     return _select(device, rglru_scan.eligible(x_shape),
                    f"RG-LRU scan, x {tuple(x_shape)}")
-
-
-def jax_attention_eligible(q_shape, kv_shape, *, block_q: int = 128,
-                           block_k: int = 128) -> bool:
-    """The JAX gate's eligibility rule, copied from
-    ``repro.kernels.policy.attention_eligible``: the Pallas kernel's own
-    constraints (GQA head ratio, sequence lengths tiled by the block
-    sizes, lane-aligned head dim)."""
-    if len(q_shape) != 4 or len(kv_shape) != 4:
-        return False
-    _, h, sq, d = q_shape
-    _, kh, sk, kd = kv_shape
-    bq, bk = min(block_q, sq), min(block_k, sk)
-    return (kh >= 1 and h % kh == 0 and d == kd and d % 8 == 0
-            and sq % bq == 0 and sk % bk == 0)
-
-
-def select_attention_impl_per_class(q_shape, kv_shape, device) -> str:
-    """``"cuda"`` or ``"ref"`` for the graph IR's attention over one
-    specialization class (device-local shapes): the kernel where the JAX
-    gate would take the Pallas kernel (through the memoized
-    :func:`select_attention_impl`, which raises where B1 cannot take the
-    shapes); the plain version elsewhere."""
-    if not jax_attention_eligible(q_shape, kv_shape) or \
-            not use_kernels(device):
-        return "ref"
-    return select_attention_impl(q_shape, kv_shape, device)

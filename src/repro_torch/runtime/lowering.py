@@ -10,12 +10,9 @@ devices runs on one card:
   are fused into rounds (each source and each destination at most once a
   round, as the reference fuses them into batched permutes); a round
   whose sources all hand over the same relative slice is one row gather,
-* reduce groups (AR / RS / SplitAR / SplitRS):
-  - ``reduction="exact"``: a float64 left fold in the group's ``srcs``
-    order, cast back — bit for bit what ``simulator.apply_plan`` does,
-  - ``reduction="fast"``: a sum in the native dtype (bit-exact only when
-    the data makes the sum order-insensitive, e.g. integer-valued
-    shards),
+* reduce groups (AR / RS / SplitAR / SplitRS): a float64 left fold in
+  the group's ``srcs`` order, cast back — bit for bit what
+  ``simulator.apply_plan`` does,
 * ID / Slice: the local-retention path.
 
 Stages that play the identical role on every row (a uniform reduce, a
@@ -43,8 +40,7 @@ import torch
 from repro_torch.core.annotations import HSPMD
 from repro_torch.core.plan import (Box, CommPlan, box_contains,
                                    box_intersect, box_shape, rel_slices)
-
-REDUCTIONS = ("exact", "fast")
+from repro_torch.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -214,17 +210,12 @@ def _box_index(starts, shape, device) -> tuple[torch.Tensor, ...]:
     return tuple(idx)
 
 
-def _fold(contribs: list[torch.Tensor], reduction: str) -> torch.Tensor:
-    """Sum of one reduce group's contributions, in ``srcs`` order: a
-    float64 left fold (exact) or a native-dtype left fold (fast)."""
-    if reduction == "exact":
-        acc = contribs[0].to(torch.float64)
-        for c in contribs[1:]:
-            acc = acc + c.to(torch.float64)
-        return acc
-    acc = contribs[0]
+def _fold(contribs: list[torch.Tensor]) -> torch.Tensor:
+    """Sum of one reduce group's contributions: a float64 left fold in
+    ``srcs`` order."""
+    acc = contribs[0].to(torch.float64)
     for c in contribs[1:]:
-        acc = acc + c
+        acc = acc + c.to(torch.float64)
     return acc
 
 
@@ -238,9 +229,7 @@ class PlanLowering:
     :meth:`apply` only moves data."""
 
     def __init__(self, plan: CommPlan, shape: tuple[int, ...],
-                 order: DeviceOrder, device, *, reduction: str = "exact"):
-        if reduction not in REDUCTIONS:
-            raise ValueError(f"reduction must be one of {REDUCTIONS}")
+                 order: DeviceOrder, device):
         if plan.src is None:
             raise ValueError("plan has no source annotation")
         self.plan = plan
@@ -248,7 +237,6 @@ class PlanLowering:
         self.order = order
         self.n_mesh = len(order)
         self.device = torch.device(device)
-        self.reduction = reduction
         self.stats = LoweringStats()
 
         self._stage_rounds: list[list[_Round]] = []
@@ -423,8 +411,7 @@ class PlanLowering:
         local shard and assembles its next box from ``k`` such pieces
         at identical destination offsets — only WHICH rows supply the
         pieces differs, so each tile is one row gather.  Copies are
-        exact, so the path is valid under either reduction mode;
-        sources with overlapping boxes are interchangeable because
+        exact; sources with overlapping boxes are interchangeable because
         replicated shards are bitwise identical (Partial layouts, whose
         shards are summands, are excluded)."""
         groups = [g for step in stage.steps for g in step.groups]
@@ -517,14 +504,15 @@ class PlanLowering:
         contrib = x[(slice(None),) + uni["src_rel"]]
         c = contrib[uni["members"]]                 # (groups, k, *box)
         k = uni["k"]
-        if self.reduction == "fast" or k == 1:
-            y = c.sum(1) if k > 1 else c[:, 0]
+        if k == 1:
+            y = c[:, 0]
         elif k == 2 and c.dtype == out_dtype:
-            # the exact sum of two values fits in float64, so the ordered
-            # float64 fold cast back IS the native two-operand sum
+            # two operands: float64 holds more than twice the bits of
+            # float32 and narrower types, so the float64 sum rounded back
+            # IS the native sum (double rounding is harmless for one add)
             y = c[:, 0] + c[:, 1]
         else:
-            y = _fold([c[:, j] for j in range(k)], "exact")
+            y = _fold([c[:, j] for j in range(k)])
         out[(slice(None),) + uni["dst_rel"]] = \
             y[(uni["group_of"],) + uni["piece_rel"]]
         return out
@@ -551,7 +539,7 @@ class PlanLowering:
                     piece = _fold(
                         [x[self.order.pos(s)][rel_slices(
                             prev.device_box(s, self.shape), g.box)]
-                         for s in g.srcs], self.reduction)
+                         for s in g.srcs])
                     per_dst = {d: piece for d in g.dsts}
                 else:
                     src = g.srcs[0]
@@ -599,15 +587,17 @@ class PlanLowering:
 
 
 def execute_plan(plan: CommPlan, parts: dict[int, np.ndarray],
-                 shape: tuple[int, ...], device="cpu", *,
-                 reduction: str = "exact") -> dict[int, np.ndarray]:
+                 shape: tuple[int, ...], device=None
+                 ) -> dict[int, np.ndarray]:
     """Run ``plan`` on stacked rows of one torch device; ``parts`` maps
     each source device to its local shard (shaped by
     ``plan.src.device_box``).  The counterpart of the reference's
-    ``runtime.backend.execute_plan``; returns the destination shards."""
+    ``runtime.backend.execute_plan``; returns the destination shards.
+    ``device=None`` means ``cuda``; ``"cpu"`` runs on the host."""
     shape = tuple(shape)
+    device = resolve_device(device)
     order = DeviceOrder.for_plan(plan)
-    lowering = PlanLowering(plan, shape, order, device, reduction=reduction)
+    lowering = PlanLowering(plan, shape, order, device)
     stacked = torch.from_numpy(pack_shards(parts, plan.src, shape,
                                            len(order), order))
     out = lowering.apply(stacked.to(device)).cpu().numpy()

@@ -47,7 +47,7 @@ from repro_torch.core.specialize import resolve_comm_ops
 from repro_torch.core.symbolic import bind_shape
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import flash_attention as flash
-from repro_torch.kernels.policy import select_attention_impl_per_class
+from repro_torch.kernels.policy import select_attention_impl
 
 from . import torch_ops
 from .lowering import (DeviceOrder, LoweringStats, PlanLowering,
@@ -138,7 +138,7 @@ class LoweredGraph:
     def __init__(self, graph: Graph, strategy: int = 0, *, device,
                  shape_env: dict[str, int] | None = None,
                  topology: Topology | None = None,
-                 reduction: str = "exact", fetches=None,
+                 fetches=None,
                  num_microbatches: int = 1, times: RunTimes | None = None):
         self.graph = graph
         self.k = strategy
@@ -148,8 +148,6 @@ class LoweredGraph:
                 f"num_microbatches must be >= 1 (got {num_microbatches})")
         self.num_microbatches = num_microbatches
         self.times = times if times is not None else RunTimes()
-        #: B1 launches made by this graph's runs
-        self.kernel_launches = 0
         env = shape_env or {}
         self.shapes = {name: bind_shape(t.shape, env)
                        for name, t in graph.tensors.items()}
@@ -181,7 +179,7 @@ class LoweredGraph:
         self._lowerings: dict[int, PlanLowering] = {}
         for op in graph.comm_ops:
             pl = PlanLowering(plans[id(op)], self.shapes[op.inputs[0].name],
-                              self.order, self.device, reduction=reduction)
+                              self.order, self.device)
             self._lowerings[id(op)] = pl
             self.stats.merge(pl.stats)
 
@@ -195,7 +193,7 @@ class LoweredGraph:
                 return ""
             qs = shapes[op.inputs[0].name]
             ks = shapes[op.inputs[1].name]
-            return select_attention_impl_per_class(
+            return select_attention_impl(
                 tuple(op.inputs[0].annots[k].device_shape(dev, qs)),
                 tuple(op.inputs[1].annots[k].device_shape(dev, ks)),
                 self.device)
@@ -246,7 +244,6 @@ class LoweredGraph:
         q, k, v = (x.reshape((-1,) + tuple(x.shape[2:])) for x in ins)
         y = flash.flash_attention(q, k, v,
                                   causal=attrs.get("causal", True))
-        self.kernel_launches += 1
         return y.reshape((n, b) + tuple(y.shape[1:]))
 
     def _run_class(self, seg, cls, rows, dtypes, tenv) -> dict:

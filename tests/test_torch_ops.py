@@ -1,9 +1,13 @@
-"""``runtime.torch_ops`` kind for kind against ``core.op_semantics``.
+"""``runtime.torch_ops`` kind for kind against the JAX package's
+``core.op_semantics``.
 
 Each compute kind of the graph IR, forward and backward, runs through the
-torch port and through numpy's ``local_apply`` / ``stacked_apply`` on the
-same inputs, and the results are cast through ``result_dtype`` as both
-executors cast them.  On integer-valued float32 inputs the arithmetic of
+torch port and through the JAX package's numpy ``local_apply`` /
+``stacked_apply`` (``repro.core.op_semantics``, which imports no JAX) on
+the same inputs, and the results are cast through ``result_dtype`` as
+both executors cast them.  The port's own copy of ``op_semantics`` (what
+its ``SimulatorExecutor`` runs) must equal the JAX package's bit for bit
+on every kind.  On integer-valued float32 inputs the arithmetic of
 most kinds is exact, so they must agree bit for bit.  Kinds that go
 through a transcendental function (gelu, silu, softmax, attention and
 their grads), or that sum non-integer products whose order numpy and
@@ -14,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import op_semantics as ops_np
+from repro.core import op_semantics as ops_np
+from repro_torch.core import op_semantics as ops_copy
 from repro_torch.runtime import torch_ops
 
 CLOSE = {"gelu", "silu", "softmax", "attention", "gelu_grad", "silu_grad",
@@ -138,6 +143,30 @@ def test_stacked_apply_matches_numpy(kind):
             "cpu")
         np.testing.assert_array_equal(got[j].numpy(), one.numpy(),
                                       err_msg=f"{kind} row {j}")
+
+
+@pytest.mark.parametrize("kind", sorted(CASES))
+def test_op_semantics_copy_matches_the_jax_package(kind):
+    """The port's numpy copy, local and stacked, bit for bit and dtype for
+    dtype against the JAX package's, on non-integer inputs too."""
+    make, attrs, out_shape = CASES[kind]
+    rng = np.random.default_rng(2)
+    rows = [make(rng) for _ in range(3)]
+    rows = [[x + rng.standard_normal(x.shape).astype(x.dtype) / 7
+             if x.dtype == np.float32 else x for x in r] for r in rows]
+    ins = [np.stack([r[i] for r in rows]) for i in range(len(rows[0]))]
+    assert ops_copy.result_dtype(kind, [x.dtype for x in ins]) == \
+        ops_np.result_dtype(kind, [x.dtype for x in ins])
+    for got, want in (
+            (ops_copy.local_apply(kind, np, rows[0], attrs, out_shape),
+             ops_np.local_apply(kind, np, rows[0], attrs, out_shape)),
+            (ops_copy.stacked_apply(kind, np, ins, attrs, out_shape, 3),
+             ops_np.stacked_apply(kind, np, ins, attrs, out_shape, 3))):
+        assert (got is None) == (want is None), kind
+        if want is not None:
+            got, want = np.asarray(got), np.asarray(want)
+            assert got.dtype == want.dtype, kind
+            np.testing.assert_array_equal(got, want, err_msg=kind)
 
 
 def test_stacked_dot_with_a_vector_has_no_stacked_form():
