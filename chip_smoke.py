@@ -50,7 +50,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    shape against its plain version, its bound and SDPA.  Last, reduced
    Llama under tp2 x pp2 with two microbatches (1f1b): B1 once per layer
    per microbatch, and the same agreement with the simulator.
-6. the kernels line, then the card line, then the result line.
+6. the production trainer (``repro_torch.launch.train``): full-width
+   Qwen2-1.5B (28 layers) and Mamba2-370M (48), and RecurrentGemma-9B at
+   full width cut to one (rec, rec, attn) superblock, each at batch 8, seq
+   512, 2 microbatches, remat, AdamW fp32, TF32 off, and freed before the
+   next.  ``launch.train.main`` runs three steps: each kernel must launch
+   layers x microbatches x 2 times a step (the forward and the remat
+   recompute; the backward runs the plain versions), losses and gradient
+   norms finite.  Two steps from one seeded init through the kernels and
+   through the plain versions (policy ``ref``) must agree: the losses
+   within rel 1e-5, every step-1 gradient within normwise 1e-3, every
+   parameter after step 2 within normwise 1e-4 (leaves that start at zero
+   excepted).  Ten steps on ``tests/test_training.py``'s learnable batch
+   must end below their first loss.  Then where a step's time goes (host
+   clock, synchronized), the device's busy share (``torch.profiler``), and
+   each kernel's plain-recompute backward per call (device time).
+7. the training line, the kernels line, then the card line, then the
+   result line.
 
 Needs a visible CUDA device and the repository's ``src/`` beside it; it
 imports nothing of JAX and nothing of the JAX package.
@@ -95,6 +111,30 @@ LOSS_RTOL, GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-6, 2e-4
 #: a normwise bound on each gradient's relative error as well (key biases
 #: excepted: their gradient is mathematically zero)
 GRAD_NORM_RTOL = 2e-4
+#: phase 6: the production trainer (``launch/train.py``), each config at
+#: published widths: (arch, layers or None for full depth).  RecurrentGemma
+#: keeps one (rec, rec, attn) superblock: its full 10.4 B parameters need
+#: ~167 GB of fp32 params, grads, m and v, more than one 80 GB card.
+TRAIN_ARCHS = (("qwen2-1.5b", None), ("mamba2-370m", None),
+               ("recurrentgemma-9b", 3))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 3
+#: kernels vs plain versions over two steps from one init: the losses'
+#: relative difference (fp32 sums in other orders, as phase 5); each
+#: gradient's normwise difference at step 1 (the worst reading was 2.1e-5,
+#: on Mamba2's A_log; tests/test_torch_gpu.py holds one kernel's
+#: gradients to 1e-4 too); each parameter's after step 2; and AdamW's m
+#: and v after step 2, linear and quadratic in the two steps' gradients,
+#: hence twice the gradients' limit.  The leaves that start at zero
+#: (biases, conv_b, A_log, dt_bias) are then the AdamW updates alone, which
+#: normalize each element by its own gradient, so an element whose
+#: gradient is near zero moves by up to +-lr whatever its relative error:
+#: m and v hold them, and their parameters' largest difference is printed
+#: in units of step 2's lr
+TRAIN_LOSS_RTOL, TRAIN_GRAD_NORMWISE, TRAIN_PARAM_NORMWISE = 1e-5, 1e-4, 1e-4
+TRAIN_STATE_NORMWISE = 2e-4
+#: the learning check: AdamW settings and steps on the learnable batch
+LEARN = dict(lr=1e-3, warmup_steps=3, weight_decay=0.0)
+LEARN_STEPS = 10
 
 
 def fail(msg: str):
@@ -537,8 +577,9 @@ def phase_serve(torch, policy, arch):
 
     from repro_torch import serve
     from repro_torch.configs import get_config
-    from repro_torch.models.model import _leaves, init_params
+    from repro_torch.models.model import init_params
     from repro_torch.train.steps import build_prefill_step
+    from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
     torch.cuda.empty_cache()
@@ -548,8 +589,8 @@ def phase_serve(torch, policy, arch):
                          generator=torch.Generator(device="cuda")
                          .manual_seed(0))
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params fp32 ({weights / 1e9:.2f} GB), "
           f"init {time.perf_counter() - t0:.1f} s, init peak memory "
@@ -931,6 +972,418 @@ def phase_graph_ir(torch, fa, ref):
     return timing
 
 
+def learnable_batch(torch, rng, batch, seq):
+    """``tests/test_training.py``'s memorizable pattern at this shape: next
+    token = (token + 1) % 64, each row from a random start."""
+    import numpy as np
+    start = rng.integers(0, 64, (batch, 1))
+    tokens = (start + np.arange(seq)[None]) % 64
+    return {"tokens": torch.from_numpy(tokens.astype(np.int32)).to("cuda"),
+            "labels": torch.from_numpy(((tokens + 1) % 64)
+                                       .astype(np.int32)).to("cuda")}
+
+
+def train_config(arch, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def train_launches_per_step(cfg) -> dict[str, int]:
+    """Each kernel's launches in one training step: the layers that hold
+    it x microbatches x 2 (the forward, and the backward's recompute of the
+    block under remat; the backward itself runs the plain versions)."""
+    return {k: n * TRAIN_MICRO * 2
+            for k, n in expected_prefill_launches(cfg).items()}
+
+
+def worst_normwise(pairs, skip=frozenset()):
+    """The largest ||a - b|| / ||b|| over (name, a, b), names in ``skip``
+    left out -> (error, name)."""
+    worst = (0.0, "")
+    for name, a, b in pairs:
+        if name in skip:
+            continue
+        norm = b.double().norm().item()
+        err = (a.double() - b.double()).norm().item() / norm if norm else \
+            a.abs().max().item()
+        worst = max(worst, (err, name))
+    return worst
+
+
+def train_kernels_vs_plain(torch, policy, cfg, kernels, per_step):
+    """Two steps from one seeded init (default AdamW, fp32, TF32 off), once
+    through the kernels and once through the plain versions on the card:
+    the losses, every gradient at step 1, every parameter (those that start
+    at zero apart) and all of AdamW's m and v after step 2, each against
+    its limit.  The kernels' results wait on the host while the plain run
+    holds the card."""
+    from repro_torch.data.pipeline import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                         init_opt_state)
+    from repro_torch.train.steps import accumulate_grads, build_train_step
+    from repro_torch.tree import named_leaves
+
+    def state(opt):
+        return [(f"{s}{n}", t) for s in ("m", "v")
+                for n, t in named_leaves(opt[s])]
+
+    def run(pol, host=None):
+        policy.set_policy(pol)
+        try:
+            params = init_params(cfg, device="cuda", generator=torch
+                                 .Generator(device="cuda").manual_seed(0))
+            zero = {n for n, t in named_leaves(params) if not t.any()}
+            opt = init_opt_state(params)
+            corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab,
+                                                  max_len=TRAIN_SEQ))
+            batches = [make_batch(corpus, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+                       for _ in range(2)]
+            before = {k: m.launches for k, m in kernels.items()}
+            loss1, grads = accumulate_grads(params, batches[0], cfg,
+                                            TRAIN_MICRO)
+            g = [(n, t) for n, t in named_leaves(grads)]
+            out = {"loss": [loss1.item()]}
+            if host is None:
+                # a host copy: apply_updates takes the grads as scratch
+                out["grads"] = [(n, t.to("cpu", copy=True)) for n, t in g]
+            else:
+                out["grad_err"] = worst_normwise(
+                    (n, host["grads"][i][1].to("cuda"), t)
+                    for i, (n, t) in enumerate(g))
+                del host["grads"]
+            del g
+            apply_updates(params, grads, opt, AdamWConfig())
+            del grads
+            step = build_train_step(cfg, AdamWConfig(), TRAIN_MICRO)
+            params, opt, met = step(params, opt, batches[1])
+            out["loss"].append(met["loss"].item())
+            torch.cuda.synchronize()
+            out["launches"] = {k: m.launches - before[k]
+                               for k, m in kernels.items()}
+            if host is None:
+                out["params"] = [(n, t.detach().to("cpu", copy=True))
+                                 for n, t in named_leaves(params)]
+                out["state"] = [(n, t.to("cpu", copy=True))
+                                for n, t in state(opt)]
+            else:
+                leaves = list(named_leaves(params))
+                out["param_err"] = worst_normwise(
+                    ((n, host["params"][i][1].to("cuda"), t.detach())
+                     for i, (n, t) in enumerate(leaves)), skip=zero)
+                out["zero_lr"] = max((
+                    ((host["params"][i][1].to("cuda") - t).abs().max().item()
+                     / met["lr"].item(), n)
+                    for i, (n, t) in enumerate(leaves) if n in zero),
+                    default=(0.0, "none"))
+                del leaves
+                out["state_err"] = worst_normwise(
+                    (n, host["state"][i][1].to("cuda"), t)
+                    for i, (n, t) in enumerate(state(opt)))
+            del params, opt, batches
+            torch.cuda.empty_cache()
+            return out
+        finally:
+            policy.set_policy("auto")
+
+    k = run("auto")
+    p = run("ref", host=k)
+    want = {kk: 2 * v for kk, v in per_step.items()}
+    if k["launches"] != want or any(p["launches"].values()):
+        fail(f"{cfg.name}: launches over two steps {k['launches']} through "
+             f"the kernels (expected {want}), {p['launches']} through the "
+             f"plain versions (expected none)")
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"]))
+    (gerr, gname), (perr, pname) = p["grad_err"], p["param_err"]
+    (serr, sname), (zlr, zname) = p["state_err"], p["zero_lr"]
+    ok = (lerr <= TRAIN_LOSS_RTOL and gerr <= TRAIN_GRAD_NORMWISE
+          and perr <= TRAIN_PARAM_NORMWISE and serr <= TRAIN_STATE_NORMWISE)
+    print(f"  kernels vs plain versions, two steps from seed 0: losses "
+          f"{k['loss']} vs {p['loss']} (worst rel {lerr:.2e}, limit "
+          f"{TRAIN_LOSS_RTOL:.0e}); step-1 gradients worst normwise "
+          f"{gerr:.2e} ({gname}; limit {TRAIN_GRAD_NORMWISE:.0e}); after "
+          f"step 2, params worst normwise {perr:.2e} ({pname}; limit "
+          f"{TRAIN_PARAM_NORMWISE:.0e}; the leaves that start at zero are "
+          f"held by m and v), m and v worst normwise {serr:.2e} ({sname}; "
+          f"limit {TRAIN_STATE_NORMWISE:.0e}); the zero-start leaves' "
+          f"largest element difference {zlr:.3g} x step 2's lr ({zname}): "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{cfg.name}: training through the kernels disagrees with the "
+             f"plain versions")
+    return {"loss_rel": lerr, "grad_normwise": gerr, "grad_worst": gname,
+            "param_normwise": perr, "param_worst": pname,
+            "state_normwise": serr, "state_worst": sname,
+            "zero_start_max_lr": zlr, "zero_start_worst": zname}
+
+
+def plain_backward_inputs(torch, kind, cfg):
+    """The inputs one microbatch (4 x 512) gives kernel ``kind`` in the
+    model, as leaves that need a gradient, with the Function to call and
+    a gradient for each output."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rk
+    from repro_torch.kernels import ssd_scan as sk
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, s = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ
+
+    def leaf(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale) \
+            .requires_grad_()
+    if kind == "flash":
+        h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        window = cfg.hybrid.window if cfg.hybrid else None
+        leaves = [leaf(b, s, n, d).transpose(1, 2) for n in (h, kh, kh)]
+        leaves = [t.detach().requires_grad_() for t in leaves]
+
+        def call(q, k, v):
+            return fa.flash_attention_with_grad(q, k, v, causal=True,
+                                                window=window)
+        outs = [(b, h, s, d)]
+    elif kind == "ssd":
+        sc = cfg.ssm
+        nh, n = sc.n_heads(cfg.d_model), sc.d_state
+        leaves = [leaf(b, s, nh, sc.head_dim, scale=0.5), leaf(b, s, nh),
+                  leaf(nh, scale=0.3), leaf(b, s, 2 * n, scale=0.3)]
+
+        def call(x, dt, a, bc):
+            return sk.ssd_scan_with_grad(
+                x, F.softplus(dt), -torch.exp(a), bc[..., :n], bc[..., n:],
+                chunk=sc.chunk)[0]
+        outs = [(b, s, nh, sc.head_dim)]
+    else:
+        w = cfg.hybrid.lru_width or cfg.d_model
+        leaves = [leaf(b, s, w, scale=0.5), leaf(b, s, w), leaf(b, s, w),
+                  leaf(w, scale=0.5)]
+
+        def call(x, r, i, lam):
+            return rk.rglru_scan_with_grad(x, torch.sigmoid(r),
+                                           torch.sigmoid(i), lam)
+        outs = [(b, s, w)]
+    seeds = [torch.randn(o, generator=g, device="cuda") for o in outs]
+    return call, leaves, seeds
+
+
+def plain_backward_ms(torch, kind, cfg, calls=5):
+    """One kernel call's backward in the training path -- the plain version
+    recomputed from the saved inputs and differentiated -- as device time
+    (``torch.profiler``, the mean of ``calls`` backward calls of one graph)
+    and as issued from Python one by one (CUDA events), in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    call, leaves, seeds = plain_backward_inputs(torch, kind, cfg)
+    out = call(*leaves)
+
+    def back():
+        torch.autograd.grad([out], leaves, seeds, retain_graph=True)
+    host = eager_ms(back, iters=5, warmup=2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            back()
+        torch.cuda.synchronize()
+    device = profile_device(torch, prof, 1.0)[0] / calls
+    del out, prof
+    return device, host
+
+
+def train_breakdown(torch, cfg, params, batch):
+    """One training step split into its parts, host clock with the device
+    synchronized at each boundary: each microbatch's forward (the loss
+    under remat) and backward (its gradients), then AdamW."""
+    from repro_torch.models.model import loss_fn
+    from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                         init_opt_state)
+    from repro_torch.train.steps import _split
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    fwd = bwd = 0.0
+    acc = None
+    for mb in _split(batch, TRAIN_MICRO):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(params, mb, cfg, remat=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        fwd, bwd = fwd + t1 - t0, bwd + time.perf_counter() - t1
+        acc = list(grads) if acc is None else [a.add_(g) for a, g in
+                                               zip(acc, grads)]
+        del grads, loss
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        apply_updates(leaves, acc, {"m": tree_leaves(opt["m"]),
+                                    "v": tree_leaves(opt["v"]),
+                                    "count": opt["count"]}, AdamWConfig())
+    torch.cuda.synchronize()
+    adam = time.perf_counter() - t0
+    del acc, opt
+    return fwd * 1e3, bwd * 1e3, adam * 1e3
+
+
+def profile_device(torch, prof, wall_ms):
+    """Device time of a profiled window: the kernels and copies (user
+    annotations left out), the plain recomputes' kernels inside the
+    backward's ``plain backward:`` ranges, and the busy share of
+    ``wall_ms``."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels.autograd import RANGE_PREFIX
+    busy = plain = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False) and \
+                    not e.name.startswith(RANGE_PREFIX):
+                busy += e.device_time_total / 1e3
+        elif e.name.startswith(RANGE_PREFIX):
+            plain += e.device_time_total / 1e3
+    return busy, plain, busy / wall_ms
+
+
+def phase_train(torch, policy, kernels, arch, layers):
+    """The production trainer on the card: ``launch.train.main`` for
+    ``TRAIN_STEPS`` steps, kernels against plain versions over two steps,
+    the learning check, and where a step's time goes."""
+    import gc
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as launch
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import build_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = train_config(arch, layers)
+    per_step = train_launches_per_step(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"== phase 6: train {cfg.name} full width, {cfg.n_layers} layers"
+          f"{' (depth cut)' if layers else ''}, batch {TRAIN_BATCH}, seq "
+          f"{TRAIN_SEQ}, {TRAIN_MICRO} microbatches, remat, AdamW fp32 "
+          f"({card_line()})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mod in kernels.values():
+        mod.launches = 0
+    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+            str(TRAIN_MICRO), "--log-every", "1", "--seed", "0"]
+    if layers:
+        argv += ["--layers", str(layers)]
+    t0 = time.perf_counter()
+    res = launch.main(argv)
+    launches = {k: m.launches for k, m in kernels.items()}
+    step_ms = [round(t, 1) for t in res["step_ms"]]
+    print(f"  launch.train.main: {time.perf_counter() - t0:.1f} s for "
+          f"{TRAIN_STEPS} steps; step ms {step_ms}; {tokens / (min(res['step_ms'][1:]) / 1e3):.0f} tok/s at the "
+          f"fastest later step; peak memory {res['peak_memory_gib']} GiB")
+    print(f"  launches per step {res['launches']} (derived: {per_step}, "
+          f"layers x {TRAIN_MICRO} microbatches x 2)")
+    if any(s != per_step for s in res["launches"]) or launches != {
+            k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        fail(f"{cfg.name}: kernel launches {res['launches']} a step, "
+             f"{launches} in all; expected {per_step} a step")
+    if not (np.isfinite(res["losses"]).all()
+            and np.isfinite(res["grad_norms"]).all()):
+        fail(f"{cfg.name}: non-finite losses {res['losses']} or gradient "
+             f"norms {res['grad_norms']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    agree = train_kernels_vs_plain(torch, policy, cfg, kernels, per_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # learning on the memorizable batch; the last step profiled
+    params = init_params(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    n_blocks = sum(t.numel() for t in tree_leaves(params["groups"]))
+    n_head = params.get("lm_head", params["embed"]).numel()
+    opt = init_opt_state(params)
+    step = build_train_step(cfg, AdamWConfig(**LEARN), TRAIN_MICRO)
+    rng = np.random.default_rng(0)
+    losses, walls = [], []
+    for i in range(LEARN_STEPS):
+        batch = learnable_batch(torch, rng, TRAIN_BATCH, TRAIN_SEQ)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == LEARN_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize()
+        else:
+            params, opt, met = step(params, opt, batch)
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(met["loss"].item())
+    learned = bool(np.isfinite(losses).all() and losses[-1] < losses[0])
+    print(f"  learning ({LEARN_STEPS} steps on the learnable batch, "
+          f"{LEARN}): losses {[round(x, 4) for x in losses]}; last / first "
+          f"{losses[-1] / losses[0]:.3f}: {'ok' if learned else 'FAIL'}")
+    if not learned:
+        fail(f"{cfg.name}: the loss did not fall on the learnable batch")
+    busy, plain_prof, _ = profile_device(torch, prof, walls[-1])
+    unprofiled = float(np.median(walls[1:-1]))
+    share = busy / unprofiled
+    del opt, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fwd, bwd, adam = train_breakdown(torch, cfg, params, batch)
+    kinds = [k for k, v in per_step.items() if v]
+    calls = {k: per_step[k] // 2 for k in kinds}   # backward calls a step
+    timed = {k: plain_backward_ms(torch, k, cfg) for k in kinds}
+    plain = {k: t[0] for k, t in timed.items()}
+    plain_step = sum(plain[k] * calls[k] for k in kinds)
+    # matmul flops: 2 a weight and token forward, 4 backward, and 2 more
+    # for the blocks' remat recompute (the head is not recomputed)
+    flops = (6 * (n_blocks + n_head) + 2 * n_blocks) * tokens
+    step_ms = min(res["step_ms"][1:])
+    print(f"  step (launch.train.main, host clock, synchronized): "
+          f"{step_ms:.1f} ms = {tokens / step_ms * 1e3:.0f} tok/s; "
+          f"{flops / 1e12:.1f} TFLOP of weight matmuls a step = "
+          f"{flops / step_ms / 1e9:.1f} TFLOP/s")
+    print(f"  where a step goes (host clock, device synchronized at each "
+          f"boundary): forward {fwd:.1f} ms, backward (with the remat "
+          f"recompute) {bwd:.1f} ms, AdamW {adam:.1f} ms")
+    print(f"  profiled learning step: device {busy:.1f} ms (torch.profiler) "
+          f"against {unprofiled:.1f} ms host for an unprofiled step "
+          f"({share:.1%} busy; {walls[-1]:.1f} ms under the profiler); the "
+          f"plain recomputes' kernels (their profiler ranges) {plain_prof:.1f}"
+          f" ms = {plain_prof / bwd:.1%} of the backward")
+    print(f"  plain recompute in the backward, per call (device time; "
+          f"issued from Python one by one): " + ", ".join(
+              f"{k} {timed[k][0]:.3f} ms ({timed[k][1]:.3f} ms) x {calls[k]}"
+              for k in kinds)
+          + f" = {plain_step:.1f} ms of device time a step, "
+          f"{plain_step / bwd:.1%} of the backward")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": f"{cfg.name}, {cfg.n_layers} layers, batch "
+                      f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MICRO} "
+                      f"microbatches",
+            "launches": launches, "launches_per_step": res["launches"][-1],
+            "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "matmul_tflop": flops / 1e12,
+            "peak_memory_gib": res["peak_memory_gib"],
+            "busy_share": share, "forward_ms": fwd, "backward_ms": bwd,
+            "adamw_ms": adam, "plain_backward_ms": plain,
+            "plain_backward_share": plain_step / bwd,
+            "plain_backward_host_ms": {k: t[1] for k, t in timed.items()},
+            "plain_profiler_ms": plain_prof, "learn_losses": losses,
+            **agree}
+
+
 def main() -> int:
     try:
         import torch
@@ -987,6 +1440,20 @@ def main() -> int:
     total = {k: sum(p[k] for p in paths.values()) for k in paths[ARCHS[0]]}
     ir = phase_graph_ir(torch, fa, ref)
     total["flash"] += ir["launches"]
+    kmods = {"flash": fa, "ssd": sk, "rglru": rk}
+    train = {arch: phase_train(torch, policy, kmods, arch, layers)
+             for arch, layers in TRAIN_ARCHS}
+    for t in train.values():
+        for k, n in t["launches"].items():
+            total[k] += n
+
+    def training(kind):
+        """Each training config's launches a step and plain recompute."""
+        return {arch: {"launches_per_step": t["launches_per_step"][kind],
+                       "launches": t["launches"][kind],
+                       "plain_backward_ms": t["plain_backward_ms"][kind]}
+                for arch, t in train.items()
+                if t["launches_per_step"][kind]}
 
     def entry(name, source, replaces, launches, worst, t, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1013,19 +1480,23 @@ def main() -> int:
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:114", total["flash"],
               fa_worst, fa_t[(128, "float32")], cuda_launches_per_call=1,
-              shapes=flash_shapes),
+              shapes=flash_shapes, training=training("flash")),
         entry("ssd_scan", csrc + "ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:92", total["ssd"], ssd_worst,
               ssd_t["float32"], kernel_ms=ssd_t["float32"]["kernel_ms"],
               cuda_launches_per_call=3,
               shape="b4 s512 h32 p64 n128 chunk256 fp32 "
-                    "(Mamba2-370M prefill)", bf16=ssd_t["bfloat16"]),
+                    "(Mamba2-370M prefill)", bf16=ssd_t["bfloat16"],
+              training=training("ssd")),
         entry("rglru_scan", csrc + "rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:70", total["rglru"], rg_worst,
               rg_t["float32"], cuda_launches_per_call=1,
               shape="b4 s512 w4096 fp32 (RecurrentGemma-9B prefill)",
-              bf16=rg_t["bfloat16"]),
+              bf16=rg_t["bfloat16"], training=training("rglru")),
     ]
+    print("training: " + json.dumps({
+        arch: {k: v for k, v in t.items() if k != "learn_losses"}
+        for arch, t in train.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@ this module adds is the check that every leaf of the source is used exactly
 once, with the shape the port expects.  A path is a tuple of dict keys and,
 inside a Griffin group's ``subs`` list, list indices
 (``("groups", "g0_griffin", "subs", 0, "mixer", "in_x")``).
+
+The map runs both ways: :func:`params_from_jax` and :func:`opt_state_from_jax`
+carry a JAX tree over; :func:`params_to_jax` gives a port tree (parameters,
+or AdamW's m or v) back in the JAX layout as numpy, leaf for leaf.
 """
 
 from __future__ import annotations
@@ -17,20 +21,10 @@ import torch
 from .device import resolve_device
 from .models.config import ModelConfig
 from .models.model import check_ported, griffin_pattern, layer_groups
+from .tree import paths
 
 #: leaves the JAX package keeps in fp32 whatever the model dtype
 FP32_LEAVES = ("A_log", "dt_bias", "lam")
-
-
-def _flatten(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _flatten(v, prefix + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _flatten(v, prefix + (i,))
-    else:
-        yield prefix, tree
 
 
 def path_str(path) -> str:
@@ -128,7 +122,7 @@ def params_from_jax(tree, cfg: ModelConfig, *, device=None,
     another shape, or is left unused.  The leaves in :data:`FP32_LEAVES`
     stay fp32 whatever ``dtype`` is, as in the JAX package."""
     device = resolve_device(device)
-    src = dict(_flatten(tree))
+    src = dict(paths(tree))
     params: dict = {}
     for path, shape in param_shapes(cfg).items():
         if path not in src:
@@ -147,3 +141,41 @@ def params_from_jax(tree, cfg: ModelConfig, *, device=None,
         raise ValueError("unused JAX parameters: "
                          + ", ".join(path_str(p) for p in src))
     return _lists(params)
+
+
+def opt_state_from_jax(state, cfg: ModelConfig, *, device=None) -> dict:
+    """The port's AdamW state (:func:`repro_torch.optim.adamw.init_opt_state`)
+    from the JAX package's ``{"m", "v", "count"}`` given as numpy: m and v
+    through the parameters' path map, all fp32, and ``count`` an int32
+    scalar."""
+    device = resolve_device(device)
+    return {"m": params_from_jax(state["m"], cfg, device=device),
+            "v": params_from_jax(state["v"], cfg, device=device),
+            "count": torch.tensor(int(np.asarray(state["count"])),
+                                  dtype=torch.int32, device=device)}
+
+
+def params_to_jax(params, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`params_from_jax`: a tree of numpy arrays in the
+    JAX package's layout (bf16 widened to fp32, which numpy cannot hold),
+    from the port's parameters or from AdamW's m or v.  Raises if a leaf is
+    missing, has another shape, or is not a parameter."""
+    src = dict(paths(params))
+    out: dict = {}
+    for path, shape in param_shapes(cfg).items():
+        if path not in src:
+            raise ValueError(f"the port's tree lacks {path_str(path)}")
+        t = src.pop(path)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{path_str(path)}: shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t.detach().to("cpu", torch.float32
+                                       if t.dtype == torch.bfloat16
+                                       else t.dtype).numpy()
+    if src:
+        raise ValueError("leaves that are not parameters: "
+                         + ", ".join(path_str(p) for p in src))
+    return _lists(out)

@@ -15,6 +15,11 @@ On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`.  On a CUDA tensor it
 launches the kernel or raises; it never falls back.  ``launches`` counts
 the kernel launches.
+
+:func:`flash_attention_with_grad` is the same forward with gradients: the
+backward is the autograd of the plain version, recomputed from the saved
+q, k and v (:class:`repro_torch.kernels.autograd.PlainBackward`), since
+the JAX package has no backward for B1.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import math
 import torch
 
 from . import _build
+from .autograd import PlainBackward
 from .ref import flash_attention_ref
 
 NAME = "flash_attention"
@@ -112,3 +118,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     global launches
     launches += 1
     return out
+
+
+def flash_attention_with_grad(q, k, v, *, causal: bool = True,
+                              window: int | None = None,
+                              forward=flash_attention) -> torch.Tensor:
+    """:func:`flash_attention` with gradients for q, k and v: the forward
+    runs ``forward`` (the kernel), the backward the autograd of
+    :func:`flash_attention_ref` on the saved inputs."""
+    return PlainBackward.apply(forward, flash_attention_ref,
+                               {"causal": causal, "window": window}, q, k, v)

@@ -85,7 +85,10 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int):
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,nc,q,q,h)
     qi = torch.arange(chunk, device=x.device)
     causal = (qi[:, None] >= qi[None, :])[None, None, :, :, None]
-    L = torch.where(causal, torch.exp(diff), 0.0)
+    # masked before the exp: above the diagonal diff is a sum of -dt A > 0
+    # that overflows exp at a full chunk, and where(causal, exp(diff), 0)
+    # would back-propagate 0 * inf = NaN into it.  The values are the same.
+    L = torch.exp(torch.where(causal, diff, -torch.inf))
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)       # in B's dtype
     sw = torch.promote_types(scores.dtype, L.dtype)
     y_intra = torch.einsum("bcij,bcijh,bcjhp->bcihp", scores.to(sw),

@@ -13,6 +13,11 @@ On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.rglru_ref`.  On a CUDA tensor it launches the
 kernel or raises; it never falls back.  ``launches`` counts the kernel
 launches.
+
+:func:`rglru_scan_with_grad` is the same forward with gradients for x, r,
+i and lam: the backward is the autograd of the plain version, recomputed
+from the saved inputs (:class:`repro_torch.kernels.autograd.PlainBackward`),
+since the JAX package has no backward for B3.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import ctypes
 import torch
 
 from . import _build
+from .autograd import PlainBackward
 from .ref import rglru_ref
 
 NAME = "rglru_scan"
@@ -103,3 +109,10 @@ def rglru_scan(x, r, i, lam):
     global launches
     launches += 1
     return y
+
+
+def rglru_scan_with_grad(x, r, i, lam, *, forward=rglru_scan):
+    """:func:`rglru_scan` with gradients: the forward runs ``forward`` (the
+    kernel), the backward the autograd of :func:`rglru_ref` on the saved
+    inputs."""
+    return PlainBackward.apply(forward, rglru_ref, {}, x, r, i, lam)

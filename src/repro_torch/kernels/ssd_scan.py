@@ -17,6 +17,12 @@ On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.ssd_scan_ref`.  On a CUDA tensor it launches
 the kernel or raises; it never falls back.  ``launches`` counts the kernel
 launches.
+
+:func:`ssd_scan_with_grad` is the same forward with gradients for x, dt,
+A, B and C through both outputs: the backward is the autograd of the plain
+version, recomputed from the saved inputs
+(:class:`repro_torch.kernels.autograd.PlainBackward`), since the JAX
+package has no backward for B2.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .autograd import PlainBackward
 from .ref import ssd_scan_ref
 
 NAME = "ssd_scan"
@@ -155,3 +162,11 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     global launches
     launches += 1
     return out
+
+
+def ssd_scan_with_grad(x, dt, A, B, C, *, chunk: int, forward=ssd_scan):
+    """:func:`ssd_scan` with gradients: the forward runs ``forward`` (the
+    kernel), the backward the autograd of :func:`ssd_scan_ref` on the saved
+    inputs.  Either output may go without a gradient."""
+    return PlainBackward.apply(forward, ssd_scan_ref, {"chunk": chunk},
+                               x, dt, A, B, C)

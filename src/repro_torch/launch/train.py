@@ -1,0 +1,217 @@
+"""Production training driver: the PyTorch counterpart of
+``repro/launch/train.py``.
+
+Selects an architecture config (``--arch``), initializes its parameters
+from ``--seed``, prints the weight-placement and strategy-search report,
+and runs real steps of ``build_train_step`` (microbatch accumulation,
+remat, AdamW) on synthetic packed data, checkpointing periodically in the
+JAX package's format.  On a GPU every forward runs the port's kernels
+(flash attention, the SSD scan, the RG-LRU scan), and their backward is
+the autograd of their plain versions.
+
+  python -m repro_torch.launch.train --arch qwen2-1.5b --steps 50 \\
+      --batch 8 --seq 512 --microbatches 2
+  python -m repro_torch.launch.train --device cpu --reduced --steps 3 \\
+      --batch 4 --seq 128
+
+``--reduced`` swaps in the smoke-scale variant of the config; ``--layers``
+cuts the depth and keeps the widths.  The reference's mesh and sharding
+specs have no meaning on one device and are left out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from ..checkpoint.store import restore, save
+from ..configs import get_config
+from ..data.pipeline import CorpusConfig, SyntheticCorpus, pack_batch
+from ..device import resolve_device
+from ..kernels import flash_attention, rglru_scan, ssd_scan
+from ..models.model import check_ported, init_params
+from ..optim.adamw import AdamWConfig, init_opt_state
+from ..train.steps import build_train_step
+from ..tree import named_leaves
+
+#: the kernel wrappers whose launches each step reports
+KERNELS = {"flash": flash_attention, "ssd": ssd_scan, "rglru": rglru_scan}
+
+
+def make_batch(corpus, batch, seq, device):
+    """One packed batch of token inputs (tokens, labels, loss_mask,
+    positions) on ``device``, as the reference packs it."""
+    seqs = corpus.sample_sequences(max(batch, 4))
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in pack_batch(seqs, batch, seq).items()}
+
+
+def strategy_report(params, n_devices: int = 1, num_microbatches: int = 1,
+                    cfg=None, global_batch: int = 8,
+                    seq_len: int = 256) -> None:
+    """Describe the run's weight placement through ``repro_torch.api``:
+    the FSDP-style strategy over ``n_devices``, the pipeline schedule the
+    microbatch count implies (grad accumulation is the single-stage 1F1B
+    case), the fused-BSR cost of draining to half the devices, and -- with
+    ``cfg`` -- the strategy search's pick for this device count
+    (``repro_torch.search``: enumerate -> prune -> rank), as the reference
+    reports them."""
+    from .. import api
+
+    leaves = list(named_leaves(params))
+    shapes = {name: tuple(v.shape) for name, v in leaves}
+    itemsizes = {name: v.element_size() for name, v in leaves}
+    devices = list(range(n_devices))
+    full = api.data_parallel_strategy("fsdp", devices, shapes)
+    strategies = [full]
+    if len(devices) >= 2:
+        strategies.append(api.data_parallel_strategy(
+            "fsdp-half", devices[:len(devices) // 2], shapes))
+    prog = api.Program(api.weights_graph(shapes), strategies)
+    plan = prog.compile("fsdp")
+    print(f"placement[fsdp]: {len(shapes)} tensors over "
+          f"{len(plan.devices)} device(s)")
+    sched = plan.schedule(max(num_microbatches, 1), "1f1b")
+    print(f"schedule[1f1b]: {plan.n_stages} stage(s) x "
+          f"{sched.num_microbatches} microbatch(es) -> "
+          f"{sched.stats().summary()}")
+    if len(devices) >= 2:
+        half = prog.strategy("fsdp-half")
+        report = api.estimate_switch(
+            [(n, full.annots[n], half.annots[n], shapes[n], itemsizes[n])
+             for n in shapes])
+        print(f"elastic drain to {len(devices) // 2} device(s): "
+              f"{report.summary()}")
+    if cfg is not None:
+        from ..core.costmodel import ModelSpec
+        from ..search import SearchError, Searcher, cpu_cluster
+        spec = ModelSpec(cfg.name, cfg.n_layers, cfg.d_model,
+                         getattr(cfg, "d_ff", 4 * cfg.d_model),
+                         vocab=cfg.vocab)
+        searcher = Searcher(spec, global_batch=global_batch,
+                            seq_len=seq_len, tp_options=(1, 2),
+                            pp_options=(1, 2, 4),
+                            include_hetero=len(devices) > 1)
+        try:
+            result = searcher.search(cpu_cluster(len(devices)))
+            print(f"strategy search over {len(devices)} device(s): "
+                  f"{result.prune_report.summary()}")
+            print(f"  winner {result.best.describe()}")
+        except SearchError as exc:
+            print(f"strategy search over {len(devices)} device(s): "
+                  f"{exc}")
+
+
+def main(argv=None) -> dict:
+    """Train and return the run's numbers: per-step losses, gradient
+    norms, learning rates, step times (ms, the device synchronized at each
+    step's end) and kernel launches, tokens a second and peak device
+    memory (GiB, CUDA only)."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--microbatches", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--strategy-report", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="print the repro_torch.api weight-placement and "
+                         "strategy-search summary at startup "
+                         "(--no-strategy-report skips the planning it "
+                         "costs)")
+    ap.add_argument("--elastic-probe", action="store_true",
+                    help="the reference's live elastic probe trace; not "
+                         "ported yet")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.elastic_probe:
+        raise NotImplementedError(
+            "--elastic-probe runs repro.elastic, which is not ported yet "
+            "(ROADMAP item 10)")
+    if args.batch % args.microbatches:
+        ap.error("--batch must be a multiple of --microbatches")
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    check_ported(cfg)
+    print(f"arch={cfg.name} ({cfg.family}) layers={cfg.n_layers} "
+          f"d={cfg.d_model} params~{cfg.param_count() / 1e6:.1f}M "
+          f"device={device}")
+
+    params = init_params(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(args.seed))
+    if args.strategy_report:
+        strategy_report(params, 1, num_microbatches=args.microbatches,
+                        cfg=cfg, global_batch=args.batch, seq_len=args.seq)
+    opt_state = init_opt_state(params)
+    start = 0
+    if args.resume:
+        (params, opt_state), start = restore(args.resume,
+                                             (params, opt_state))
+        print(f"resumed from {args.resume} @ step {start}")
+
+    step_fn = build_train_step(cfg, AdamWConfig(lr=args.lr),
+                               num_microbatches=args.microbatches)
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, max_len=args.seq,
+                                          seed=args.seed))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "device": str(device),
+           "losses": [], "grad_norms": [], "lrs": [], "step_ms": [],
+           "launches": []}
+    sync()
+    t0 = time.time()
+    for step in range(start, start + args.steps):
+        before = {k: mod.launches for k, mod in KERNELS.items()}
+        batch = make_batch(corpus, args.batch, args.seq, device)
+        t_step = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        sync()
+        out["step_ms"].append((time.perf_counter() - t_step) * 1e3)
+        out["launches"].append({k: mod.launches - before[k]
+                                for k, mod in KERNELS.items()})
+        loss = float(metrics["loss"])
+        gn = float(metrics["grad_norm"])
+        out["losses"].append(loss)
+        out["grad_norms"].append(gn)
+        out["lrs"].append(float(metrics["lr"]))
+        if step % args.log_every == 0 or step == start + args.steps - 1:
+            dt = time.time() - t0
+            tput = (step - start + 1) * args.batch * args.seq / dt
+            print(f"step {step:5d} loss {loss:8.4f} gnorm {gn:8.3f} "
+                  f"{tput:8.0f} tok/s")
+        if args.ckpt and step and step % 100 == 0:
+            save(args.ckpt, (params, opt_state), step, {"arch": cfg.name})
+    out["tokens_per_s"] = args.steps * args.batch * args.seq / (
+        time.time() - t0)
+    out["peak_memory_gib"] = (torch.cuda.max_memory_allocated(device)
+                              / 2**30 if device.type == "cuda" else None)
+    if args.ckpt:
+        save(args.ckpt, (params, opt_state), start + args.steps,
+             {"arch": cfg.name})
+        print(f"checkpoint -> {args.ckpt}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -14,7 +14,8 @@ mesh and are dropped.
 
 Public entry points:
   init_params(cfg, *, generator, device, dtype)
-  forward(params, batch, cfg, last_only=False)  -> (logits, aux)
+  forward(params, batch, cfg, remat=False, last_only=False) -> (logits, aux)
+  loss_fn(params, batch, cfg, remat=False)     -> (loss, metrics)
   init_decode_state(cfg, batch, max_len, dtype, device)
   decode_step(params, state, batch, cfg)        -> (logits, state)
 """
@@ -23,8 +24,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..tree import tree_leaves, tree_map
 from .config import ModelConfig
 from .layers import (_init, apply_attention, apply_mlp, init_attention,
                      init_mlp, init_rmsnorm, rms_norm)
@@ -86,29 +89,25 @@ def check_ported(cfg: ModelConfig) -> None:
             f"yet ({_WAITING})")
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _layer(stacked, i):
     """Layer ``i`` of a stacked tree: views of the tensors; other leaves
     (a cache's ``idx``) as they are."""
-    return _tree_map(lambda a: a[i] if torch.is_tensor(a) else a, stacked)
+    return tree_map(lambda a: a[i] if torch.is_tensor(a) else a, stacked)
+
+
+def _layers(stacked) -> list:
+    """Every layer of a stacked tree, as :func:`_layer` gives each, cut
+    with one ``unbind`` per leaf.  Under autograd a leaf's layer gradients
+    then meet in one stack, where ``stacked[i]`` would add a zero-filled
+    ``(L, ...)`` gradient per layer."""
+    if isinstance(stacked, dict):
+        parts = {k: _layers(v) for k, v in stacked.items()}
+        return [{k: p[i] for k, p in parts.items()}
+                for i in range(_count(stacked))]
+    if isinstance(stacked, list):
+        parts = [_layers(v) for v in stacked]
+        return [[p[i] for p in parts] for i in range(_count(stacked))]
+    return list(torch.unbind(stacked))
 
 
 def _set_layer(stacked, i, tree) -> None:
@@ -127,7 +126,7 @@ def _set_layer(stacked, i, tree) -> None:
 
 
 def _count(gparams) -> int:
-    return next(_leaves(gparams)).shape[0]
+    return tree_leaves(gparams)[0].shape[0]
 
 
 def init_block(generator, cfg: ModelConfig, kind: str, dtype, device):
@@ -207,7 +206,7 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
         "groups": {}}
     for gi, (kind, count) in enumerate(layer_groups(cfg)):
         first = init_block(generator, cfg, kind, dtype, device)
-        stacked = _tree_map(lambda a: a.new_empty((count,) + a.shape), first)
+        stacked = tree_map(lambda a: a.new_empty((count,) + a.shape), first)
         _set_layer(stacked, 0, first)
         del first
         for i in range(1, count):
@@ -237,9 +236,14 @@ def _head(params, x, cfg: ModelConfig):
     return x @ head
 
 
-def forward(params, batch, cfg: ModelConfig, last_only: bool = False):
-    """Full-sequence forward -> (logits, aux_loss).  ``last_only`` computes
-    the LM head on the final position only (prefill serving)."""
+def forward(params, batch, cfg: ModelConfig, remat: bool = False,
+            last_only: bool = False):
+    """Full-sequence forward -> (logits, aux_loss).  ``remat`` keeps only
+    each block's input for the backward and runs the block again there
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
+    each scanned block in ``jax.checkpoint``; the kernels then run once in
+    the forward and once in the recompute.  ``last_only`` computes the LM
+    head on the final position only (prefill serving)."""
     check_ported(cfg)
     x = _embed_inputs(params, batch)
     b, s = x.shape[:2]
@@ -249,12 +253,39 @@ def forward(params, batch, cfg: ModelConfig, last_only: bool = False):
     ctx = {"positions": positions, "causal": True}
     for gname, gparams in params["groups"].items():
         kind = gname.split("_", 1)[1]
-        for i in range(_count(gparams)):
-            x, _ = apply_block(_layer(gparams, i), x, cfg, kind, ctx)
+
+        def blk(x, lp, kind=kind):
+            return apply_block(lp, x, cfg, kind, ctx)[0]
+
+        for lp in _layers(gparams):
+            if remat:
+                x = checkpoint(blk, x, lp, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = blk(x, lp)
     if last_only:
         x = x[:, -1:, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig, remat: bool = False):
+    """Mean next-token cross-entropy over ``loss_mask`` (all ones when the
+    batch has none) plus the aux loss -> (loss, {"nll", "aux"}).  As in the
+    JAX package, the log-softmax is never formed: fp32 logsumexp minus the
+    picked logit, and the mask's sum is kept at least 1."""
+    logits, aux = forward(params, batch, cfg, remat=remat)
+    labels = batch["labels"].long()
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    picked = torch.gather(logits32, -1, labels[..., None])[..., 0]
+    nll = lse - picked
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

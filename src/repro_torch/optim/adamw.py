@@ -1,14 +1,24 @@
-"""AdamW over ShardedTensors: the numpy half of ``repro/optim/adamw.py``.
+"""AdamW: the PyTorch counterpart of ``repro/optim/adamw.py``.
 
-The reference module also holds the jax AdamW of the plain model stack
-(``init_opt_state`` / ``apply_updates``); the port keeps only what
-``Session.train_step`` runs: :class:`AdamWConfig` and the per-shard host
-update, copied with ``repro.`` imports rewritten to ``repro_torch.``.
+Two halves, as in the reference module:
+
+* the plain model stack's AdamW (``init_opt_state`` / ``_schedule`` /
+  ``apply_updates``, the reference's jax half, :33-73) over a tree of
+  tensors, in the same order of operations, updating parameters and state
+  in place;
+* AdamW over ShardedTensors (``init_sharded_state`` ..
+  ``sharded_apply_updates``), the per-shard host update that
+  ``Session.train_step`` runs, copied with ``repro.`` imports rewritten to
+  ``repro_torch.``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
+
+from ..tree import tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -20,6 +30,69 @@ class AdamWConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     warmup_steps: int = 100
+
+
+def init_opt_state(params):
+    """fp32 m and v shaped as the parameters, and the step ``count``, an
+    int32 scalar on the parameters' device, as the reference keeps it."""
+    device = tree_leaves(params)[0].device
+    return {
+        "m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params),
+        "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params),
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _schedule(cfg: AdamWConfig, count):
+    """Linear warmup to ``cfg.lr``: an fp32 scalar tensor."""
+    warm = torch.clamp(count.float() / max(cfg.warmup_steps, 1), max=1.0)
+    return cfg.lr * warm
+
+
+@torch.no_grad()
+def apply_updates(params, grads, opt_state, cfg: AdamWConfig):
+    """AdamW step -> (params, opt_state, {"grad_norm", "lr"}), every metric
+    an fp32 scalar tensor on the parameters' device.
+
+    The reference's order of operations: the global norm from the per-leaf
+    square sums added in tree order, the clip scale, m and v, the bias
+    corrections ``1 - b ** count`` on fp32 scalars, the warmup lr, then
+    ``p - lr * ((m / bc1) / (sqrt(v / bc2) + eps) + wd * p)``.  Unlike the
+    reference, the parameters and the state are updated in place (and the
+    fp32 gradients serve as scratch), so a step holds one copy of each; the
+    trees returned are the ones given."""
+    count = opt_state["count"] + 1
+    leaves = tree_leaves(grads)
+    sq = torch.sum(torch.square(leaves[0].float()))
+    for g in leaves[1:]:
+        sq = sq + torch.sum(torch.square(g.float()))
+    gnorm = torch.sqrt(sq)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    c = count.float()
+    bc1 = 1 - cfg.b1 ** c
+    bc2 = 1 - cfg.b2 ** c
+    lr = _schedule(cfg, count)
+
+    def upd(p, g, m, v):
+        g = g.float()                                   # scratch from here
+        g.mul_(scale)                                   # g = g * scale
+        t = g * (1 - cfg.b1)
+        m.mul_(cfg.b1).add_(t)                          # m = b1 m + (1-b1) g
+        torch.mul(g, 1 - cfg.b2, out=t).mul_(g)
+        v.mul_(cfg.b2).add_(t)                          # v = b2 v + (1-b2) g g
+        torch.div(v, bc2, out=t).sqrt_().add_(cfg.eps)
+        step = torch.div(m, bc1, out=g).div_(t)         # (m/bc1) / (.. + eps)
+        p32 = p.float()
+        step.add_(torch.mul(p32, cfg.weight_decay, out=t))  # + wd p
+        p32.sub_(step.mul_(lr))                         # p - lr step
+        if p32 is not p:
+            p.copy_(p32)
+
+    tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
+    opt_state["count"] = count
+    return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 
 
 # ---------------------------------------------------------------------------

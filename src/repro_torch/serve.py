@@ -111,6 +111,28 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor,
     }
 
 
+def placement_report(cfg: ModelConfig) -> str:
+    """The serving-time weight placement as a compiled ``repro_torch.api``
+    strategy, as ``examples/serve.py`` reports it: TP4 serving replicas
+    (the projections column-split over a 4-device group), switchable to a
+    TP2 layout when half the serving pod is drained."""
+    from . import api
+    proj_shapes = {"wq": (cfg.d_model, cfg.d_model),
+                   "wo": (cfg.d_model, cfg.d_model)}
+    tp4 = api.Strategy("serve-tp4", {
+        n: api.spmd([0, 1, 2, 3], api.DS({1: 4})) for n in proj_shapes})
+    tp2 = api.Strategy("serve-tp2", {
+        n: api.spmd([0, 1], api.DS({1: 2})) for n in proj_shapes})
+    compiled = api.Program(api.weights_graph(proj_shapes),
+                           [tp4, tp2]).compile("serve-tp4")
+    drain = api.estimate_switch(
+        [(n, tp4.annots[n], tp2.annots[n], proj_shapes[n], 2)
+         for n in proj_shapes])
+    return (f"serving placement: {compiled.strategy.name} over "
+            f"{len(compiled.devices)} devices; drain to tp2 = "
+            f"{drain.summary()}")
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-1.5b")
@@ -135,6 +157,7 @@ def main(argv=None) -> dict:
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
 
+    print(placement_report(cfg))
     res = generate(params, cfg, prompts, args.gen)
     print(f"arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"batch={args.batch} device={device}")

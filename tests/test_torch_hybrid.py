@@ -29,6 +29,7 @@ from repro.models import model as jm  # noqa: E402
 from repro.models import rglru as jrg  # noqa: E402
 from repro.train import steps as jsteps  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.tree import paths  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, policy  # noqa: E402
@@ -290,15 +291,15 @@ def test_hybrid_params_convert_one_to_one_with_list_paths(cfgs, weights):
     assert ("groups", "g0_griffin", "subs", 0, "mixer", "in_x") in shapes
     assert convert.path_str(next(p for p in shapes if "lam" in p)) \
         == "groups/g0_griffin/subs/0/mixer/lam"
-    jleaves = dict(convert._flatten(jax.tree.map(np.asarray, jparams)))
-    tleaves = dict(convert._flatten(tparams))
+    jleaves = dict(paths(jax.tree.map(np.asarray, jparams)))
+    tleaves = dict(paths(tparams))
     assert jleaves.keys() == tleaves.keys() == shapes.keys()
     for path, t in tleaves.items():
         np.testing.assert_array_equal(t.numpy(), jleaves[path])
     assert isinstance(tparams["groups"]["g0_griffin"]["subs"], list)
     own = tm.init_params(tcfg, generator=torch.Generator().manual_seed(0),
                          device="cpu")
-    assert {p: tuple(t.shape) for p, t in convert._flatten(own)} == shapes
+    assert {p: tuple(t.shape) for p, t in paths(own)} == shapes
     half = convert.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                                    device="cpu", dtype=torch.bfloat16)
     assert half["groups"]["g0_griffin"]["subs"][0]["mixer"]["lam"].dtype \
@@ -326,7 +327,7 @@ def test_hybrid_converter_uses_every_leaf_once(cfgs):
         return node
     tree = lists(tree)
     params = convert.params_from_jax(tree, tcfg, device="cpu")
-    leaves = list(convert._flatten(params))
+    leaves = list(paths(params))
     assert sorted(float(t.flatten()[0]) for _, t in leaves) \
         == [i + 0.5 for i in range(len(shapes))]
     tree["groups"]["g0_griffin"]["subs"][1]["stray"] = np.zeros(3)

@@ -19,6 +19,7 @@ from repro.models import layers as jl  # noqa: E402
 from repro.models import model as jm  # noqa: E402
 from repro.train import steps as jsteps  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.tree import paths  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
@@ -165,11 +166,11 @@ def test_params_from_jax_uses_every_leaf_once(cfgs):
             node = node.setdefault(key, {})
         node[path[-1]] = np.full(shape, i + 0.5, np.float32)
     params = convert.params_from_jax(tree, tcfg, device="cpu")
-    leaves = list(convert._flatten(params))
+    leaves = list(paths(params))
     assert len(leaves) == len(shapes)
     seen = sorted(float(t.flatten()[0]) for _, t in leaves)
     assert seen == [i + 0.5 for i in range(len(shapes))]
-    src = dict(convert._flatten(tree))
+    src = dict(paths(tree))
     for path, t in leaves:
         np.testing.assert_array_equal(t.numpy(), src[path])
 
@@ -185,15 +186,15 @@ def test_params_from_jax_uses_every_leaf_once(cfgs):
 def test_jax_init_tree_converts_one_to_one(cfgs, weights):
     _, tcfg = cfgs
     jparams, tparams = weights
-    jleaves = dict(convert._flatten(jax.tree.map(np.asarray, jparams)))
-    tleaves = dict(convert._flatten(tparams))
+    jleaves = dict(paths(jax.tree.map(np.asarray, jparams)))
+    tleaves = dict(paths(tparams))
     assert jleaves.keys() == tleaves.keys()
     for path, t in tleaves.items():
         np.testing.assert_array_equal(t.numpy(), jleaves[path])
     # the port's own init builds the same tree
     own = tm.init_params(tcfg, generator=torch.Generator().manual_seed(0),
                          device="cpu")
-    assert {p: tuple(t.shape) for p, t in convert._flatten(own)} \
+    assert {p: tuple(t.shape) for p, t in paths(own)} \
         == convert.param_shapes(tcfg)
 
 

@@ -67,6 +67,32 @@ def test_serve_greedy_tokens_match_jax_serving_pair(monkeypatch, capsys):
     np.testing.assert_array_equal(res["tokens"].numpy(), want)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-9b"])
+def test_serving_placement_report_matches_the_reference(arch):
+    """``serve.placement_report`` through the copied api prints what
+    ``examples/serve.py`` computes through ``repro.api``."""
+    from repro import api as japi
+    cfg = jax_get_config(arch).reduced()
+    shapes = {"wq": (cfg.d_model, cfg.d_model),
+              "wo": (cfg.d_model, cfg.d_model)}
+    tp4 = japi.Strategy("serve-tp4", {
+        n: japi.spmd([0, 1, 2, 3], japi.DS({1: 4})) for n in shapes})
+    tp2 = japi.Strategy("serve-tp2", {
+        n: japi.spmd([0, 1], japi.DS({1: 2})) for n in shapes})
+    compiled = japi.Program(japi.weights_graph(shapes),
+                            [tp4, tp2]).compile("serve-tp4")
+    drain = japi.estimate_switch(
+        [(n, tp4.annots[n], tp2.annots[n], shapes[n], 2) for n in shapes])
+    want = (f"serving placement: {compiled.strategy.name} over "
+            f"{len(compiled.devices)} devices; drain to tp2 = "
+            f"{drain.summary()}")
+    got = serve.placement_report(get_config(arch).reduced())
+
+    def untimed(line):     # the planner's own wall time varies per call
+        return re.sub(r"plan [0-9.]+ ms", "plan _ ms", line)
+    assert untimed(got) == untimed(want)
+
+
 def test_serve_rejects_a_missing_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -116,12 +142,17 @@ sys.exit(1 if bad else 0)
 @pytest.mark.parametrize("modules", [
     ("repro_torch.api", "repro_torch.runtime.program"),
     ("repro_torch.core",), ("repro_torch.runtime",), ("repro_torch.optim",),
-    ("repro_torch.optim.adamw", "repro_torch.models.graph_block")],
+    ("repro_torch.optim.adamw", "repro_torch.models.graph_block"),
+    ("repro_torch.launch.train",), ("repro_torch.checkpoint.store",),
+    ("repro_torch.data.pipeline",), ("repro_torch.search",),
+    ("repro_torch.tree",),
+    ("repro_torch.train.steps", "repro_torch.kernels.autograd")],
     ids=lambda m: "+".join(m))
 def test_graph_ir_half_imports_no_jax_and_no_reference_package(modules):
     """A fresh process that imports only the graph-IR half of the port
-    (the planning copies, the torch runtime, the optimizer) holds neither
-    ``jax`` nor any ``repro.*`` module."""
+    (the planning copies, the torch runtime, the optimizer) or only the
+    trainer's modules (launcher, checkpoints, data, search, train step)
+    holds neither ``jax`` nor any ``repro.*`` module."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, *modules],
                           cwd=ROOT, capture_output=True, text=True,
                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),

@@ -27,6 +27,7 @@ from repro.models import model as jm  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro.train import steps as jsteps  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.tree import paths  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, policy  # noqa: E402
 from repro_torch.kernels import ssd_scan as sk  # noqa: E402
@@ -266,15 +267,15 @@ def test_mamba2_params_convert_one_to_one(cfgs, weights):
     same tree; A_log and dt_bias stay fp32 under a bf16 model."""
     jcfg, tcfg = cfgs
     jparams, tparams = weights
-    jleaves = dict(convert._flatten(jax.tree.map(np.asarray, jparams)))
-    tleaves = dict(convert._flatten(tparams))
+    jleaves = dict(paths(jax.tree.map(np.asarray, jparams)))
+    tleaves = dict(paths(tparams))
     assert jleaves.keys() == tleaves.keys() == convert.param_shapes(
         tcfg).keys()
     for path, t in tleaves.items():
         np.testing.assert_array_equal(t.numpy(), jleaves[path])
     own = tm.init_params(tcfg, generator=torch.Generator().manual_seed(0),
                          device="cpu")
-    assert {p: tuple(t.shape) for p, t in convert._flatten(own)} \
+    assert {p: tuple(t.shape) for p, t in paths(own)} \
         == convert.param_shapes(tcfg)
     half = convert.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                                    device="cpu", dtype=torch.bfloat16)
