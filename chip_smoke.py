@@ -65,8 +65,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    must end below their first loss.  Then where a step's time goes (host
    clock, synchronized), the device's busy share (``torch.profiler``), and
    each kernel's plain-recompute backward per call (device time).
-7. the training line, the kernels line, then the card line, then the
-   result line.
+7. elastic training and dynamic switching on ``TorchExecutor`` (cuda),
+   every switch migrating weights and AdamW m/v through the torch comm
+   lowering.  (a) The probe traces of ``repro/runtime/selftest.py``
+   (``elastic:trace/4to2``, ``2to4``, ``hetero``; 6 steps, 2
+   microbatches), a kill + join landing mid-transition and a crash after a
+   checkpoint resumed on another device set: weights, m and v bitwise the
+   port's uninterrupted reference run on its numpy simulator, losses rtol
+   1e-5, the selftest's transition kinds.  (b) Phase 5's program, weights
+   and feeds through ``ElasticDriver``: dp2 x tp2 on devices 0-3, tp2 on
+   0-1 from step 1, dp2 x tp2 again from step 2.  Each switch's weights, m
+   and v bitwise the simulator's migration of the same state; each step's
+   B1 launches equal to the lowered graph's dispatches; the losses within
+   rtol 1e-5 of phase 5's uninterrupted run, and after step 3 each weight
+   within normwise 1e-4 and each m and v within 2e-4 of its state (phase
+   6's limits; the key biases' m and v left out, their gradient being
+   zero).  Per switch: messages, MB, planning and wall ms, the split into
+   lowering, packing + copy to the device, row moves and copy back +
+   unpack, and the grow's device-busy share (``torch.profiler``); step ms
+   under each strategy, peak memory.  (c) The strategy search's validator
+   with ``executors=("sim", "torch")`` on the card: every executed
+   candidate bit-exact.
+8. the training line, the elastic line, the kernels line, then the card
+   line, then the result line.
 
 Needs a visible CUDA device and the repository's ``src/`` beside it; it
 imports nothing of JAX and nothing of the JAX package.
@@ -135,6 +156,20 @@ TRAIN_STATE_NORMWISE = 2e-4
 #: the learning check: AdamW settings and steps on the learnable batch
 LEARN = dict(lr=1e-3, warmup_steps=3, weight_decay=0.0)
 LEARN_STEPS = 10
+#: phase 7: the probe traces of ``repro/runtime/selftest.py``
+#: (``elastic:trace/*``), 6 steps at 2 microbatches, with the transition
+#: kinds the selftest expects
+PROBE_TRACES = {
+    "4to2": ([(0, (0, 1, 2, 3), "dp"), (2, (0, 1), "dp"), (4, (0, 1), "pp")],
+             ["shrink", "class-change"]),
+    "2to4": ([(0, (0, 1), "dp"), (2, (0, 1, 2, 3), "dp"),
+              (4, (0, 1, 2, 3), "pp")], ["grow", "class-change"]),
+    "hetero": ([(0, (0, 1, 2, 3), "dp"), (2, (0, 1, 2, 3), "hetero"),
+                (4, (0, 1), "dp")], ["class-change", "shrink"]),
+}
+#: ... and phase 5's program through the driver: dp2 x tp2 on devices 0-3,
+#: tp2 on devices 0-1 from step 1 (a shrink), dp2 x tp2 again from step 2
+ELASTIC_TRACE = [(0, (0, 1, 2, 3)), (1, (0, 1)), (2, (0, 1, 2, 3))]
 
 
 def fail(msg: str):
@@ -785,7 +820,8 @@ def phase_graph_ir(torch, fa, ref):
     """Graph-IR training on ``TorchExecutor``: full-width Qwen2-1.5B
     blocks under dp2 x tp2, then reduced Llama under tp2 x pp2 with two
     microbatches.  Returns B1's launches on this path and its timings at
-    the path's shape."""
+    the path's shape, and the Qwen2 run (config, feeds, initial weights,
+    losses, final weights and AdamW m/v) for phase 7."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -928,6 +964,11 @@ def phase_graph_ir(torch, fa, ref):
     timing = dict(shape=shape, launches=launches, ms=ms, plain_ms=plain_ms,
                   library_ms=lib_ms, bound_ms=bnd, bound_by=by,
                   max_abs_err=err)
+    # phase 7 holds its elastic run to this uninterrupted one
+    run = dict(cfg=cfg, graph=prog.graph, feeds=feeds, weights=ws,
+               losses=losses,
+               final={"weights": sess.weights, "m": sess.opt_state["m"],
+                      "v": sess.opt_state["v"]})
     del sess, ex, q, k, v, out
     torch.cuda.empty_cache()
 
@@ -969,7 +1010,7 @@ def phase_graph_ir(torch, fa, ref):
                             r, want.loss, {n: want.grad_value(n)
                                            for n in lws})
     timing["launches"] += got
-    return timing
+    return timing, run
 
 
 def learnable_batch(torch, rng, batch, seq):
@@ -1383,6 +1424,296 @@ def phase_train(torch, policy, kernels, arch, layers):
             "plain_profiler_ms": plain_prof, "learn_losses": losses,
             **agree}
 
+def probe_state(session):
+    """The probe session's gathered weights, m and v (the state the
+    probe's oracle holds bit for bit)."""
+    from repro_torch.core.simulator import gather
+    out = {n: gather(st) for n, st in session.weights.items()}
+    for key in ("m", "v"):
+        out.update({f"{key}/{n}": gather(st)
+                    for n, st in session.opt_state[key].items()})
+    return out
+
+
+def check_probe(what, driver, losses, n_steps, m, transitions=()):
+    """An elastic probe run against the port's uninterrupted reference
+    run on its numpy ``SimulatorExecutor``: weights, m and v bitwise and
+    losses within rtol 1e-5; every switch on the torch lowering."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.elastic.fixtures import probe_layout, reference_run
+    ref, ref_losses = reference_run(probe_layout([0, 1, 2, 3], "dp"),
+                                    n_steps, executor=api.SimulatorExecutor(),
+                                    num_microbatches=m)
+    want, got = probe_state(ref), probe_state(driver.session)
+    drifted = [k for k in want if not np.array_equal(got[k], want[k])]
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    sim = [t.kind for t in transitions
+           if t.report.src_name != t.report.dst_name
+           and "move" not in t.report.execute_seconds]
+    print(f"  {what}: {len(losses)} steps, transitions "
+          f"{[t.kind for t in transitions]}; weights, m, v bitwise: "
+          f"{'yes' if not drifted else drifted}; losses rel {lerr:.1e}")
+    if drifted or lerr > LOSS_RTOL or len(losses) != n_steps or sim:
+        fail(f"elastic {what}: disagrees with the reference run, or "
+             f"switched off the torch lowering ({sim})")
+
+
+def phase_probe_traces():
+    """Phase 7 (a): the probe traces on ``TorchExecutor()`` (cuda), each
+    bitwise against the reference run; then a kill + join mid-transition
+    and a crash resumed on another device set."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.elastic import ElasticDriver, Fault, FaultPlan
+    from repro_torch.elastic.fixtures import (probe_feeds, probe_graph,
+                                              probe_provider, probe_values)
+
+    def driver(**kw):
+        return ElasticDriver(probe_graph(), probe_values(), probe_provider(),
+                             probe_feeds, executor=api.TorchExecutor(), **kw)
+
+    t0 = time.perf_counter()
+    for key, (trace, kinds) in PROBE_TRACES.items():
+        d = driver(num_microbatches=2)
+        run = d.run(trace, 6)
+        if run.transition_kinds() != kinds:
+            fail(f"elastic:trace/{key}: transitions "
+                 f"{run.transition_kinds()}, expected {kinds}")
+        check_probe(f"elastic:trace/{key}", d, run.losses, 6, 2,
+                    run.transitions)
+    faults = FaultPlan((Fault(2, "kill", (2, 3)), Fault(4, "join", (2,)),
+                        Fault(4, "kill", (2,), phase="mid-transition")))
+    d = driver(faults=faults)
+    run = d.run([(0, (0, 1, 2, 3), "dp")], 6)
+    kinds = {(t.step, t.trigger): t.kind for t in run.transitions}
+    if kinds != {(2, "fault"): "shrink", (4, "fault"): "grow",
+                 (4, "mid-transition"): "shrink"}:
+        fail(f"elastic kill + join mid-transition: transitions {kinds}")
+    check_probe("kill 2,3 at 2; join 2 at 4, killed mid-transition", d,
+                run.losses, 6, 1, run.transitions)
+    with tempfile.TemporaryDirectory() as ck:
+        d = driver(checkpoint_every=2, ckpt_dir=ck, faults=FaultPlan(
+            (Fault(4, "crash", phase="post-checkpoint"),)))
+        trace = [(0, (0, 1, 2, 3), "dp")]
+        run = d.run(trace, 8)
+        run2 = d.resume(trace, 8, ranks=(4, 5), layout="pp")
+        if run.interrupted_at != 4 or \
+                [s.step for s in run2.steps] != [4, 5, 6, 7] or \
+                run2.steps[0].ranks != (4, 5):
+            fail(f"elastic crash + resume: interrupted at "
+                 f"{run.interrupted_at}, resumed steps "
+                 f"{[s.step for s in run2.steps]}")
+        check_probe("crash after step 4's checkpoint, resumed as pp on 4,5",
+                    d, run.losses + run2.losses, 8, 1,
+                    run.transitions + run2.transitions)
+    print(f"  probe traces: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_elastic(torch, fa, ir_run):
+    """Phase 7: the elastic driver and dynamic switching on the card.
+    (a) the probe traces, bitwise; (b) phase 5's full-width program
+    through ``ElasticDriver`` on ``TorchExecutor()``, shrinking to tp2 and
+    growing back, each switch bitwise against the simulator's migration
+    of the same state, the run against phase 5's uninterrupted one; (c)
+    the search validator's ``("sim", "torch")`` check on the card.
+    Returns the numbers of (b) and B1's launches there."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api
+    from repro_torch.core.switching import execute_switch
+    from repro_torch.elastic import ElasticDriver
+    from repro_torch.models.graph_block import block_strategy
+    from repro_torch.search import cpu_cluster, search, tiny_spec
+
+    cfg = ir_run["cfg"]
+    print(f"== phase 7: elastic training and dynamic switching on "
+          f"TorchExecutor (cuda)")
+    t_phase = time.perf_counter()
+    phase_probe_traces()
+
+    # (b) full width: phase 5's graph (the driver's programs re-annotate
+    # it; phase 5's is done with it), weights and feeds
+    g = ir_run["graph"]
+    strategies = {(0, 1, 2, 3): block_strategy(g, dp=2, tp=2),
+                  (0, 1): block_strategy(g, dp=1, tp=2, devices=[0, 1])}
+    print(f"  {cfg.name} full width, {IR_LAYERS} layers, batch {IR_BATCH}, "
+          f"seq {IR_SEQ}: trace {ELASTIC_TRACE} with "
+          f"{' / '.join(s.name for s in strategies.values())}, phase 5's "
+          f"weights and feeds")
+    marks = []
+
+    def feeds(step):          # called just before each step's train_step
+        marks.append(fa.launches)
+        return ir_run["feeds"]
+
+    switches = []
+
+    class CheckedDriver(ElasticDriver):
+        """Holds each switch to the simulator's migration of the same
+        pre-switch state, and profiles the grow."""
+
+        def _transition(self, step, target, layout, trigger, run):
+            sess = self.session
+            before = {"weights": sess.weights, "m": sess.opt_state["m"],
+                      "v": sess.opt_state["v"]}
+            src = sess.plan.strategy_index
+            grow = len(target) > len(self.ranks)
+            if grow:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    super()._transition(step, target, layout, trigger, run)
+                    torch.cuda.synchronize()
+            else:
+                super()._transition(step, target, layout, trigger, run)
+            rec = run.transitions[-1]
+            rep = rec.report
+            dst = sess.plan.strategy_index
+            t0 = time.perf_counter()
+            bad = []
+            for key, state in before.items():
+                want = execute_switch(state, sess.program.graph, src, dst,
+                                      sess.shape_env, backend="sim",
+                                      report=rep)
+                got = sess.weights if key == "weights" \
+                    else sess.opt_state[key]
+                bad += [f"{key}/{n}" for n, st in want.items()
+                        if st.parts.keys() != got[n].parts.keys()
+                        or not all(np.array_equal(got[n].parts[d], a)
+                                   for d, a in st.parts.items())]
+            sim_s = time.perf_counter() - t0
+            parts = rep.execute_seconds
+            row = dict(step=step, kind=rec.kind, src=rep.src_name,
+                       dst=rep.dst_name, messages=rep.message_count,
+                       mb=rep.total_bytes / 1e6,
+                       plan_ms=rep.planning_seconds * 1e3,
+                       wall_ms=rep.wall_seconds * 1e3,
+                       **{f"{k}_ms": v * 1e3 for k, v in parts.items()},
+                       sim_check_s=sim_s, bitwise=not bad)
+            if grow:
+                dev, _, _ = device_breakdown(prof)
+                row["device_ms"] = sum(dev.values())
+                row["device_parts_ms"] = dev
+                row["busy"] = row["device_ms"] / row["wall_ms"]
+                row["profiled"] = True
+            switches.append(row)
+            print(f"  switch at step {step}: {rec.kind} {rep.src_name} -> "
+                  f"{rep.dst_name}: {rep.message_count} msgs, "
+                  f"{row['mb']:.1f} MB, plan {row['plan_ms']:.1f} ms, wall "
+                  f"{row['wall_ms']:.1f} ms{' (profiled)' if grow else ''};"
+                  f" weights + m + v: lower {row['lower_ms']:.1f} ms, pack + "
+                  f"copy to the device {row['pack_ms']:.1f} ms, row moves on "
+                  f"the device {row['move_ms']:.1f} ms, copy back + unpack "
+                  f"{row['unpack_ms']:.1f} ms" + (
+                      f"; device {row['device_ms']:.1f} ms ({row['busy']:.1%}"
+                      f" busy: " + ", ".join(f"{k} {v:.1f} ms"
+                                             for k, v in dev.items()) + ")"
+                      if grow else "")
+                  + f"; vs the simulator's migration ({sim_s:.1f} s): "
+                  f"{'bitwise' if not bad else bad}")
+            if bad or "move" not in parts:
+                fail(f"elastic switch at step {step}: not bitwise the "
+                     f"simulator's migration: {bad}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ex = api.TorchExecutor()
+    driver = CheckedDriver(g, ir_run["weights"],
+                           lambda ranks, layout=None: strategies[tuple(ranks)],
+                           feeds, executor=ex)
+    t0 = time.perf_counter()
+    run = driver.run(ELASTIC_TRACE, len(ELASTIC_TRACE))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    marks.append(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = [b - a for a, b in zip(marks, marks[1:])]
+    sess = driver.session
+    dispatches = []
+    for rec in run.steps:
+        tplan = sess.program.compile_train(sess.program.index(rec.strategy))
+        fetch = [tplan.loss_name] + [tplan.grad_map[t.name]
+                                     for t in tplan.graph.parameters()]
+        dispatches.append(ex.lowered(tplan, fetch).stats.kernel_dispatches)
+    lrel = [abs(a - b) / abs(b) for a, b in zip(run.losses,
+                                                ir_run["losses"])]
+    for rec, n, want, r in zip(run.steps, per_step, dispatches, lrel):
+        print(f"  step {rec.step + 1} under {rec.strategy}: loss "
+              f"{rec.loss:.9e} (phase 5 rel {r:.1e}), "
+              f"{rec.wall_seconds * 1e3:.1f} ms, B1 launches {n} (the "
+              f"lowered graph dispatches {want})")
+    if run.transition_kinds() != ["shrink", "grow"]:
+        fail(f"elastic: transitions {run.transition_kinds()}")
+    if per_step != dispatches or not all(dispatches):
+        fail(f"elastic: B1 launches {per_step}, dispatched {dispatches}")
+    if max(lrel) > LOSS_RTOL:
+        fail(f"elastic: losses {run.losses} vs phase 5's "
+             f"{ir_run['losses']}")
+    # the key biases' m and v are left out: their gradient is zero up to
+    # rounding (softmax is shift-invariant along the keys), so both runs'
+    # m and v there are rounding noise, as phase 5 leaves their gradients
+    # out of its normwise check; their weights stay in.  Both runs end
+    # under dp2 x tp2, so the norms run over the same shards on both
+    # sides (each replica counted on both, which leaves the ratio as is)
+    def flat(st):
+        return torch.from_numpy(np.concatenate(
+            [st.parts[d].ravel() for d in sorted(st.parts)]))
+
+    t_cmp = time.perf_counter()
+    worst = {}
+    for key, final in ir_run["final"].items():
+        got = sess.weights if key == "weights" else sess.opt_state[key]
+        if any(repr(got[n].annot) != repr(st.annot)
+               for n, st in final.items()):
+            fail(f"elastic: the {key} end under another layout than "
+                 f"phase 5's")
+        worst[key] = worst_normwise(
+            ((n, flat(got[n]), flat(st)) for n, st in final.items()),
+            skip={n for n in final
+                  if key != "weights" and n.endswith("/bk")})
+    t_cmp = time.perf_counter() - t_cmp
+    limits = {"weights": TRAIN_PARAM_NORMWISE, "m": TRAIN_STATE_NORMWISE,
+              "v": TRAIN_STATE_NORMWISE}
+    print(f"  after step 3 against phase 5's uninterrupted dp2 x tp2 run "
+          f"(normwise; key biases' m and v left out): " + ", ".join(
+              f"{k} {e:.2e} ({n}; limit {limits[k]:.0e})"
+              for k, (e, n) in worst.items())
+          + f" ({t_cmp:.1f} s); run {wall:.1f} s (the checks against the "
+          f"simulator included), peak memory "
+          f"{peak:.2f} GiB")
+    if any(e > limits[k] for k, (e, _) in worst.items()):
+        fail("elastic: the state after step 3 drifted from phase 5's run")
+    launches = sum(per_step)
+    del driver, sess, ex
+    torch.cuda.empty_cache()
+
+    # (c) the search validator on the card
+    t0 = time.perf_counter()
+    result = search(cpu_cluster(4), tiny_spec(), global_batch=16,
+                    seq_len=256, validate_top=2, repeats=1,
+                    executors=("sim", "torch"))
+    executed = result.validation.executed
+    for e in executed:
+        print(f"  validator: {e.describe()}; error {e.error}")
+    print(f"  validator ('sim', 'torch') on the card: "
+          f"{time.perf_counter() - t0:.1f} s")
+    if len(executed) != 2 or not all(e.bit_exact is True and e.error is None
+                                     for e in executed):
+        fail("elastic: the validator's TorchExecutor is not bit-exact")
+    t_phase = time.perf_counter() - t_phase
+    print(f"  phase 7: {t_phase:.1f} s")
+    return {"launches": launches, "launches_per_step": per_step,
+            "dispatches_per_step": dispatches, "losses": run.losses,
+            "loss_rel": lrel,
+            "step_ms": [(rec.strategy, rec.wall_seconds * 1e3)
+                        for rec in run.steps],
+            "switches": switches, "peak_memory_gib": peak,
+            "state_normwise": {k: e for k, (e, _) in worst.items()},
+            "run_s": wall, "compare_s": t_cmp, "phase_s": t_phase}
+
 
 def main() -> int:
     try:
@@ -1438,7 +1769,7 @@ def main() -> int:
 
     paths = {arch: phase_serve(torch, policy, arch) for arch in ARCHS}
     total = {k: sum(p[k] for p in paths.values()) for k in paths[ARCHS[0]]}
-    ir = phase_graph_ir(torch, fa, ref)
+    ir, ir_run = phase_graph_ir(torch, fa, ref)
     total["flash"] += ir["launches"]
     kmods = {"flash": fa, "ssd": sk, "rglru": rk}
     train = {arch: phase_train(torch, policy, kmods, arch, layers)
@@ -1446,6 +1777,9 @@ def main() -> int:
     for t in train.values():
         for k, n in t["launches"].items():
             total[k] += n
+    elastic = phase_elastic(torch, fa, ir_run)
+    total["flash"] += elastic["launches"]
+    del ir_run
 
     def training(kind):
         """Each training config's launches a step and plain recompute."""
@@ -1472,6 +1806,10 @@ def main() -> int:
          "launches": paths["recurrentgemma-9b"]["flash"],
          **fa_t[(256, "float32")]},
         ir,
+        {**ir, "shape": "B8 H6 K1 S512 D128 causal fp32 (elastic Qwen2-1.5B "
+                        "shrink/grow: dp2 x tp2, then tp2; the rows folded "
+                        "into the batch; times at phase 5's shape)",
+         "launches": elastic["launches"]},
         {"shape": "B4 H12 K2 S512 D128 causal bf16 (tensor cores)",
          "launches": 0, **fa_t[(128, "bfloat16")]},
         {"shape": "B4 H16 K1 S512 D256 causal window 2048 bf16 (tensor "
@@ -1497,6 +1835,7 @@ def main() -> int:
     print("training: " + json.dumps({
         arch: {k: v for k, v in t.items() if k != "learn_losses"}
         for arch, t in train.items()}))
+    print("elastic: " + json.dumps(elastic))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -422,7 +422,12 @@ class Session:
         (the elastic driver's mid-run re-selection): it is registered via
         :meth:`Program.add_strategy` first.  The returned report carries
         the measured end-to-end ``wall_seconds`` of the whole switch plus
-        ``src_name``/``dst_name``."""
+        ``src_name``/``dst_name``.
+
+        Weights and AdamW m/v migrate through the fused-BSR plan on the
+        session's executor: a :class:`TorchExecutor` session moves them on
+        its device (``backend="torch"``, the parts' times on
+        ``execute_seconds``), any other on the numpy simulator."""
         t_wall = time.perf_counter()
         if isinstance(strategy, Strategy):
             dst = self.program.add_strategy(strategy)
@@ -444,16 +449,19 @@ class Session:
                                 message_count=0,
                                 wall_seconds=time.perf_counter() - t_wall,
                                 src_name=names[src], dst_name=names[dst])
-        # every executor of the port migrates through the numpy simulator;
-        # the torch comm lowering of the fused-BSR plan is ROADMAP item 7
-        backend, mesh = "sim", None
+        # a TorchExecutor session migrates on its own device through the
+        # torch comm lowering; any other executor on the numpy simulator
+        if isinstance(self.executor, TorchExecutor):
+            backend, device = "torch", self.executor.device
+        else:
+            backend, device = "sim", None
         # same topology fallback as Program.compile: explicit session
         # topology first, then the destination strategy's own
         topology = self.topology or \
             self.program.strategies[dst].topology
         outcome = core_switch(
             self.weights, self.program.graph, src, dst, self.shape_env,
-            topology, backend=backend, mesh=mesh)
+            topology, backend=backend, device=device)
         if self.opt_state is not None:
             # optimizer m/v mirror the weight annotations: migrate them
             # through the same fused-BSR plan so training resumes
@@ -462,7 +470,7 @@ class Session:
             for key in ("m", "v"):
                 self.opt_state[key] = execute_switch(
                     self.opt_state[key], self.program.graph, src, dst,
-                    self.shape_env, topology, backend=backend, mesh=mesh,
+                    self.shape_env, topology, backend=backend, device=device,
                     report=outcome.report)
         self.weights = outcome.weights
         self.plan = self.program.compile(dst, shape_env=self.shape_env,

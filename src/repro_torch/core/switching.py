@@ -7,9 +7,11 @@ from its source annotation to its destination annotation, modeled as one
 heuristics + per-pair message fusion, load-balanced across the whole
 transition.
 
-``switch`` also executes the plan on the virtual-device simulator so the
-weight migration is verified numerically, and reports the statistics the
-paper uses in Fig 18 / Table 2 (per-rank volume over fast/slow links,
+``switch`` also executes the plan, on the virtual-device simulator
+(``backend="sim"``) or on the torch comm lowering (``backend="torch"``:
+every virtual device one row of a stacked buffer on one torch device), so
+the weight migration is verified numerically, and reports the statistics
+the paper uses in Fig 18 / Table 2 (per-rank volume over fast/slow links,
 message counts, estimated transition time).
 """
 
@@ -42,6 +44,10 @@ class SwitchReport:
     wall_seconds: float = 0.0
     src_name: str = ""
     dst_name: str = ""
+    # host-clock seconds of the torch backend's parts, summed over every
+    # tensor it migrated under this report (weights, then AdamW m and v):
+    # "lower", "pack", "move", "unpack" (``runtime.lowering.execute_plan``)
+    execute_seconds: dict[str, float] = field(default_factory=dict)
 
     def summary(self) -> str:
         arrow = (f"{self.src_name} -> {self.dst_name}: "
@@ -105,25 +111,28 @@ def execute_switch(weights: dict[str, ShardedTensor],
                    graph: Graph, src_strategy: int, dst_strategy: int,
                    shape_env: dict[str, int] | None = None,
                    topology: Topology | None = None, *,
-                   backend: str = "sim", mesh=None,
-                   reduction: str = "exact",
+                   backend: str = "sim", device=None,
                    report: SwitchReport | None = None
                    ) -> dict[str, ShardedTensor]:
     """Migrate weight shards to the destination strategy.
 
     Per-tensor plans share the fused global planning state; execution is
-    per tensor on the virtual-device simulator (``backend="sim"``,
-    numerically exact).  The reference's ``backend="jax"`` has no
-    counterpart in the port yet (the fused-BSR plan on the torch comm
-    lowering is ROADMAP item 7), so it raises."""
+    per tensor either on the virtual-device simulator (``backend="sim"``,
+    numerically exact) or on the torch comm lowering (``backend="torch"``:
+    each tensor's ``switch:BSR`` plan runs as row moves on ``device``,
+    ``None`` meaning ``cuda``; BSR moves copies only, so every shard is
+    bit for bit the simulator's).  The torch backend adds its parts' times
+    to ``report.execute_seconds``.  The reference's ``backend="jax"`` (the
+    messages as collective-permutes on JAX devices) has its counterpart
+    in ``"torch"`` and raises here."""
     from .symbolic import bind_shape
-    if backend not in ("sim", "jax"):
-        raise ValueError(f"unknown switch backend {backend!r}")
     if backend == "jax":
         raise NotImplementedError(
-            "switch backend 'jax' is not ported: running the fused-BSR "
-            "plan on the torch comm lowering is ROADMAP item 7; use "
-            "backend='sim'")
+            "switch backend 'jax' is the JAX package's; the port migrates "
+            "on the torch comm lowering with backend='torch' (or on the "
+            "simulator with backend='sim')")
+    if backend not in ("sim", "torch"):
+        raise ValueError(f"unknown switch backend {backend!r}")
     if report is None:
         report = plan_switch(graph, src_strategy, dst_strategy, shape_env,
                              topology, mode="fused")
@@ -139,7 +148,13 @@ def execute_switch(weights: dict[str, ShardedTensor],
         sub = BsrPlan(by_tensor.get(p.name, []), fused=True)
         cp = CommPlan(src=src, dst=dst, kind="switch:BSR")
         cp.add(sub.to_step(), dst)
-        out[p.name] = apply_plan(weights[p.name], cp)
+        if backend == "torch":
+            from repro_torch.runtime.lowering import execute_plan
+            parts = execute_plan(cp, weights[p.name].parts, shape, device,
+                                 times=report.execute_seconds)
+            out[p.name] = ShardedTensor(tuple(shape), dst, parts)
+        else:
+            out[p.name] = apply_plan(weights[p.name], cp)
     return out
 
 
@@ -157,12 +172,12 @@ def switch(weights: dict[str, ShardedTensor],
            graph: Graph, src_strategy: int, dst_strategy: int,
            shape_env: dict[str, int] | None = None,
            topology: Topology | None = None, *,
-           backend: str = "sim", mesh=None,
-           reduction: str = "exact") -> SwitchOutcome:
+           backend: str = "sim", device=None) -> SwitchOutcome:
     """Plan + execute the fused-BSR strategy switch, returning both the
     migrated weights and the planning/transfer report (paper §6.2) —
-    what ``repro.api.Session.switch`` composes.  Report statistics are
-    priced at each live weight's actual itemsize."""
+    what ``repro_torch.api.Session.switch`` composes.  Report statistics
+    are priced at each live weight's actual itemsize; ``backend`` and
+    ``device`` are :func:`execute_switch`'s."""
 
     def isz(name: str) -> int:
         st = weights.get(name)
@@ -173,6 +188,6 @@ def switch(weights: dict[str, ShardedTensor],
     report = plan_switch(graph, src_strategy, dst_strategy, shape_env,
                          topology, mode="fused", itemsize=isz)
     new = execute_switch(weights, graph, src_strategy, dst_strategy,
-                         shape_env, topology, backend=backend, mesh=mesh,
-                         reduction=reduction, report=report)
+                         shape_env, topology, backend=backend,
+                         device=device, report=report)
     return SwitchOutcome(new, report, src_strategy, dst_strategy)

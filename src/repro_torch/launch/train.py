@@ -12,7 +12,7 @@ the autograd of their plain versions.
   python -m repro_torch.launch.train --arch qwen2-1.5b --steps 50 \\
       --batch 8 --seq 512 --microbatches 2
   python -m repro_torch.launch.train --device cpu --reduced --steps 3 \\
-      --batch 4 --seq 128
+      --batch 4 --seq 128 --elastic-probe
 
 ``--reduced`` swaps in the smoke-scale variant of the config; ``--layers``
 cuts the depth and keeps the widths.  The reference's mesh and sharding
@@ -105,6 +105,26 @@ def strategy_report(params, n_devices: int = 1, num_microbatches: int = 1,
                   f"{exc}")
 
 
+def elastic_probe_report(device) -> None:
+    """Run the elastic probe trace live (``repro_torch.elastic``): real
+    ``train_step``s on ``TorchExecutor(device)`` through a shrink -> grow
+    -> class-change trace, each switch migrating weights and AdamW m/v on
+    the torch comm lowering, and print what each transition cost, as the
+    reference's ``elastic_probe_report`` does."""
+    from .. import api
+    from ..elastic import ElasticDriver
+    from ..elastic.fixtures import (probe_feeds, probe_graph,
+                                    probe_provider, probe_values)
+
+    driver = ElasticDriver(probe_graph(), probe_values(),
+                           probe_provider(), probe_feeds,
+                           executor=api.TorchExecutor(device),
+                           num_microbatches=2)
+    run = driver.run([(0, (0, 1, 2, 3), "dp"), (2, (0, 1), "dp"),
+                      (4, (0, 1, 2, 3), "pp")], 6)
+    print(f"elastic probe: {run.summary()}")
+
+
 def main(argv=None) -> dict:
     """Train and return the run's numbers: per-step losses, gradient
     norms, learning rates, step times (ms, the device synchronized at each
@@ -130,15 +150,14 @@ def main(argv=None) -> dict:
                          "(--no-strategy-report skips the planning it "
                          "costs)")
     ap.add_argument("--elastic-probe", action="store_true",
-                    help="the reference's live elastic probe trace; not "
-                         "ported yet")
+                    help="also run the live elastic probe trace "
+                         "(repro_torch.elastic: shrink/grow/class-change "
+                         "with fused-BSR migration on the device) and "
+                         "print per-transition costs before training "
+                         "starts")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.elastic_probe:
-        raise NotImplementedError(
-            "--elastic-probe runs repro.elastic, which is not ported yet "
-            "(ROADMAP item 10)")
     if args.batch % args.microbatches:
         ap.error("--batch must be a multiple of --microbatches")
 
@@ -158,6 +177,8 @@ def main(argv=None) -> dict:
     if args.strategy_report:
         strategy_report(params, 1, num_microbatches=args.microbatches,
                         cfg=cfg, global_batch=args.batch, seq_len=args.seq)
+    if args.elastic_probe:
+        elastic_probe_report(device)
     opt_state = init_opt_state(params)
     start = 0
     if args.resume:

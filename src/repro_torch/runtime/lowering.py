@@ -32,6 +32,7 @@ is native on both the GPU and the CPU, so the reference's x64 scope
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -587,22 +588,55 @@ class PlanLowering:
 
 
 def execute_plan(plan: CommPlan, parts: dict[int, np.ndarray],
-                 shape: tuple[int, ...], device=None
+                 shape: tuple[int, ...], device=None,
+                 times: dict[str, float] | None = None
                  ) -> dict[int, np.ndarray]:
     """Run ``plan`` on stacked rows of one torch device; ``parts`` maps
     each source device to its local shard (shaped by
     ``plan.src.device_box``).  The counterpart of the reference's
     ``runtime.backend.execute_plan``; returns the destination shards.
-    ``device=None`` means ``cuda``; ``"cpu"`` runs on the host."""
+    ``device=None`` means ``cuda``; ``"cpu"`` runs on the host.
+
+    ``times``, when given, accumulates the host-clock seconds of the
+    call's parts, the device synchronized at each boundary: ``lower``
+    (the plan's geometry), ``pack`` (stack the numpy shards, copy them to
+    the device), ``move`` (the row moves on the device) and ``unpack``
+    (copy back, cut out each destination shard)."""
     shape = tuple(shape)
     device = resolve_device(device)
+    clock = _PartClock(times, device)
     order = DeviceOrder.for_plan(plan)
     lowering = PlanLowering(plan, shape, order, device)
+    clock.lap("lower")
     stacked = torch.from_numpy(pack_shards(parts, plan.src, shape,
-                                           len(order), order))
-    out = lowering.apply(stacked.to(device)).cpu().numpy()
+                                           len(order), order)).to(device)
+    clock.lap("pack")
+    out = lowering.apply(stacked)
+    del stacked
+    clock.lap("move")
+    out = out.cpu().numpy()
     dst = plan.annots[-1]
-    return {dev: out[(order.pos(dev),) + tuple(
-                slice(0, s) for s in box_shape(dst.device_box(dev, shape)))
-                ].copy()
-            for dev in dst.devices}
+    got = {dev: out[(order.pos(dev),) + tuple(
+               slice(0, s) for s in box_shape(dst.device_box(dev, shape)))
+               ].copy()
+           for dev in dst.devices}
+    clock.lap("unpack")
+    return got
+
+
+class _PartClock:
+    """Adds the seconds since the last lap to ``times[part]``, after
+    synchronizing a CUDA device; does nothing when ``times`` is None."""
+
+    def __init__(self, times, device):
+        self.times, self.device = times, device
+        self.t = time.perf_counter()
+
+    def lap(self, part: str) -> None:
+        if self.times is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.times[part] = self.times.get(part, 0.0) + now - self.t
+        self.t = now

@@ -11,7 +11,7 @@ stages x asymmetric per-group sharding), :mod:`prune` (memory /
 divisibility / layer-count feasibility with per-rule rejection counts),
 :mod:`rank` (measured-fraction priced pipeline cost model),
 :mod:`validate` (top-k executed via ``compile_train`` +
-``Session.train_step`` on forced CPU meshes, sim↔jax bit-exact),
+``Session.train_step``, sim↔torch bit-exact),
 :mod:`driver` (the restart-free entry point the elastic driver calls).
 """
 

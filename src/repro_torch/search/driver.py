@@ -93,7 +93,7 @@ class Searcher:
 
     def search(self, cluster: ClusterSpec,
                ranks: list[int] | None = None, *,
-               validate_top: int = 0, executors=("sim",), mesh=None,
+               validate_top: int = 0, executors=("sim",), device=None,
                repeats: int = 3, what: str = "strategy",
                **validate_kw) -> SearchResult:
         """Enumerate + prune + rank; with ``validate_top=k > 0`` also
@@ -109,7 +109,7 @@ class Searcher:
         validation = None
         if validate_top > 0:
             validation = validate(cluster, ranked, top_k=validate_top,
-                                  executors=executors, mesh=mesh,
+                                  executors=executors, device=device,
                                   repeats=repeats, **validate_kw)
         return SearchResult(ranked, report, validation)
 
@@ -156,7 +156,7 @@ class Searcher:
 
 def search(cluster: ClusterSpec, model: ModelSpec, *,
            global_batch: int, seq_len: int = 4096,
-           validate_top: int = 0, executors=("sim",), mesh=None,
+           validate_top: int = 0, executors=("sim",), device=None,
            **searcher_kw) -> SearchResult:
     """One-shot convenience: ``search.driver.search(cluster, model,
     global_batch=..., validate_top=3)``."""
@@ -168,5 +168,5 @@ def search(cluster: ClusterSpec, model: ModelSpec, *,
     searcher = Searcher(model, global_batch=global_batch,
                         seq_len=seq_len, **searcher_kw)
     return searcher.search(cluster, validate_top=validate_top,
-                           executors=executors, mesh=mesh,
+                           executors=executors, device=device,
                            **extra_validate)

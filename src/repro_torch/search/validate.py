@@ -9,10 +9,10 @@ chain (comm ops at every owner change), DP/hetero pipelines as hsize>1
 subgroups with batch slabs (``hdim=0``) and hetero-duplicated weights
 whose gradients come back ``hdim=Partial`` (the SplitAR grad path PR 6
 made executable) — then trained end to end via
-``Program.compile_train`` + ``Session.train_step`` on forced CPU
-meshes, on both executors.  (The port's copy runs the simulator only:
-its ``validate`` raises for any other executor until a TorchExecutor
-validator lands, ROADMAP item 14.)
+``Program.compile_train`` + ``Session.train_step``, on the numpy
+simulator and, when asked, on a ``TorchExecutor`` (every virtual device
+one row of stacked buffers on one torch device), where the reference
+runs a ``JaxExecutor`` on forced CPU meshes.
 
 Measuring is subtle: the SimulatorExecutor serializes every device onto
 one CPU, so raw wall time is nearly invariant across dp/pp splits (the
@@ -27,8 +27,9 @@ under).
 
 Proxy numerics are exact: inputs are small integers and every weight is
 a signed selection matrix (one ±1 per column), so activations never
-grow, float32 arithmetic stays integer-exact, and sim↔jax losses and
-gradients can be compared BITWISE.
+grow, float32 arithmetic stays integer-exact, and sim↔torch losses and
+gradients can be compared BITWISE (``resolve_device`` turns TF32 off
+on the GPU, so its products are full fp32).
 """
 
 from __future__ import annotations
@@ -231,7 +232,7 @@ class ExecutedCandidate:
     projected_makespan_s: float | None = None  # speed-scaled (hetero)
     proxy_predicted_s: float | None = None     # plan's own timetable
     loss: float | None = None
-    bit_exact: bool | None = None              # sim vs jax (None: sim only)
+    bit_exact: bool | None = None              # sim vs torch (None: sim only)
     error: str | None = None
 
     @property
@@ -304,7 +305,7 @@ class ValidationReport:
 
 
 def validate(cluster: ClusterSpec, ranked: list[RankedCandidate], *,
-             top_k: int = 3, executors=("sim",), mesh=None,
+             top_k: int = 3, executors=("sim",), device=None,
              repeats: int = 3, batch: int = 16, n_pairs: int = 8,
              d: int = 16, f: int = 32, max_micro: int = 8,
              speed_project: bool | None = None,
@@ -312,19 +313,23 @@ def validate(cluster: ClusterSpec, ranked: list[RankedCandidate], *,
     """Execute the top-k ranked candidates as proxy training programs
     and compare cost-model ordering against measured makespans.
 
-    In the reference, ``executors=("sim", "jax")`` also runs each
-    candidate on the JaxExecutor; the port takes ``("sim",)`` only and
-    raises :class:`NotImplementedError` for anything else (ROADMAP item
-    14: a TorchExecutor validator).  ``mesh`` is unused.
+    ``executors=("sim", "torch")`` additionally runs each candidate on a
+    ``TorchExecutor(device)`` (``None`` meaning ``cuda``) and checks the
+    first step's loss and every weight gradient BITWISE against the
+    simulator, as the reference's ``("sim", "jax")`` does on its
+    JaxExecutor; ``"jax"`` raises.
     """
     from repro_torch import api
 
     import statistics
 
-    if set(executors) != {"sim"}:
+    unknown = set(executors) - {"sim", "torch"}
+    if unknown:
         raise NotImplementedError(
-            f"executors {executors}: the port validates on the simulator "
-            f"only; a TorchExecutor validator is ROADMAP item 14")
+            f"executors {sorted(unknown)}: the port validates on the "
+            f"simulator ('sim') and the TorchExecutor ('torch')")
+    # made before any candidate runs, so a missing GPU raises here
+    torch_ex = api.TorchExecutor(device) if "torch" in executors else None
 
     if speed_project is None:
         speed_project = len({dt.tflops for dt in cluster.ranks}) > 1
@@ -407,6 +412,25 @@ def validate(cluster: ClusterSpec, ranked: list[RankedCandidate], *,
                 calibration = base / entry.measured_makespan_s
             if calibration:
                 entry.proxy_predicted_s = base / calibration
+            if torch_ex is not None:
+                entry.bit_exact = _bit_exact(api, proxy, torch_ex, run["m"],
+                                             run["kind"])
         except Exception as e:  # noqa: BLE001 - isolate candidates
             entry.error = f"{type(e).__name__}: {e}"
     return ValidationReport(tuple(out), speed_project)
+
+
+def _bit_exact(api, proxy: ProxyCase, torch_ex, m: int, kind: str) -> bool:
+    """One fresh train step on each executor; loss and every gradient
+    must match BITWISE (the proxy arithmetic is integer-exact)."""
+    results = []
+    for executor in (api.SimulatorExecutor(), torch_ex):
+        sess = api.Session(proxy.program, 0, executor=executor)
+        sess.load(proxy.weights)
+        results.append(sess.train_step(proxy.feeds, num_microbatches=m,
+                                       schedule=kind))
+    a, b = results
+    if a.loss != b.loss:
+        return False
+    return all(np.array_equal(a.grad_value(p), b.grad_value(p))
+               for p in a.grads)

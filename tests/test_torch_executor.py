@@ -445,30 +445,48 @@ def test_get_executor_knows_sim_and_torch():
 
 
 def test_session_switch_migrates_through_the_simulator():
-    """``Session.switch`` on a TorchExecutor session takes the ``"sim"``
-    backend (the torch fused-BSR path is a later item); the core switch's
-    ``"jax"`` backend raises."""
+    """``Session.switch`` migrates on the session's executor: a
+    ``SimulatorExecutor`` session through the numpy simulator, a
+    ``TorchExecutor`` session through the torch comm lowering on its
+    device; both bitwise the JAX package's simulator switch.  The core
+    switch's ``"jax"`` backend raises and names ``"torch"``."""
+    from repro.core.switching import execute_switch as jexecute_switch
     from repro_torch.core.switching import execute_switch
-    g = api.Graph()
-    g.placeholder("X", (8, 16), [spmd([0, 1], DS({DUP: 2})),
-                                 spmd([0, 1], DS({0: 2}))])
-    g.parameter("W", (16, 8), [spmd([0, 1], DS({1: 2})),
-                               spmd([0, 1], DS({DUP: 2}))])
-    g.dot(g.tensors["X"], g.tensors["W"], name="Y")
-    prog = api.Program(g, [api.Strategy("tp", {
-        "X": spmd([0, 1], DS({DUP: 2})), "W": spmd([0, 1], DS({1: 2}))}),
-        api.Strategy("dp", {"X": spmd([0, 1], DS({0: 2})),
-                            "W": spmd([0, 1], DS({DUP: 2}))})])
+
+    def program(pkg):
+        sp, ds, dup = pkg.spmd, pkg.DS, pkg.DUP
+        g = pkg.Graph()
+        g.placeholder("X", (8, 16), [sp([0, 1], ds({dup: 2})),
+                                     sp([0, 1], ds({0: 2}))])
+        g.parameter("W", (16, 8), [sp([0, 1], ds({1: 2})),
+                                   sp([0, 1], ds({dup: 2}))])
+        g.dot(g.tensors["X"], g.tensors["W"], name="Y")
+        return pkg.Program(g, [pkg.Strategy("tp", {
+            "X": sp([0, 1], ds({dup: 2})), "W": sp([0, 1], ds({1: 2}))}),
+            pkg.Strategy("dp", {"X": sp([0, 1], ds({0: 2})),
+                                "W": sp([0, 1], ds({dup: 2}))})])
+
     w = np.arange(128, dtype=np.float32).reshape(16, 8)
     xv = np.ones((8, 16), np.float32)
-    sess = api.Session(prog, "tp", executor=torch_ex())
-    sess.load({"W": w})
-    before = sess.run({"X": xv}).value("Y")
-    report = sess.switch("dp")
-    assert report.dst_name == "dp"
-    np.testing.assert_array_equal(sess.weight_value("W"), w)
-    np.testing.assert_array_equal(sess.run({"X": xv}).value("Y"), before)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    jprog = program(japi)
+    jsess = japi.Session(jprog, "tp")
+    jsess.load({"W": w})
+    want = jexecute_switch(jsess.weights, jprog.graph, 0, 1)["W"]
+    for ex, moved in ((api.SimulatorExecutor(), False), (torch_ex(), True)):
+        prog = program(api)
+        sess = api.Session(prog, "tp", executor=ex)
+        sess.load({"W": w})
+        before = sess.run({"X": xv}).value("Y")
+        report = sess.switch("dp")
+        assert report.dst_name == "dp"
+        assert ("move" in report.execute_seconds) == moved, ex.name
+        assert sess.weights["W"].parts.keys() == want.parts.keys()
+        for dev, part in want.parts.items():
+            np.testing.assert_array_equal(sess.weights["W"].parts[dev], part)
+        np.testing.assert_array_equal(sess.weight_value("W"), w)
+        np.testing.assert_array_equal(sess.run({"X": xv}).value("Y"),
+                                      before)
+    with pytest.raises(NotImplementedError, match="'torch'"):
         execute_switch(sess.weights, prog.graph, 1, 0, backend="jax")
 
 

@@ -443,3 +443,34 @@ def test_train_step_runs_every_kernel_forward_and_recompute(cuda, arch):
     from repro_torch.tree import tree_leaves
     for a, b in zip(tree_leaves(grads), tree_leaves(pgrads)):
         assert (a - b).norm() <= 1e-4 * b.norm() + 1e-12
+
+
+@pytest.mark.parametrize("dst_kind", ["pp", "hetero"])
+def test_session_switch_on_the_card_matches_the_simulator(cuda, dst_kind):
+    """The elastic probe trained two steps under dp over four virtual
+    devices, then switched: a ``TorchExecutor`` session on the card
+    migrates weights and AdamW m/v through the torch comm lowering
+    (``backend="torch"``), every shard bitwise what the port's numpy
+    ``SimulatorExecutor`` session holds after the same switch."""
+    from repro_torch import api
+    from repro_torch.elastic import fixtures as fix
+    sessions = []
+    for ex in (api.SimulatorExecutor(), api.TorchExecutor()):
+        prog = api.Program(fix.probe_graph(),
+                           [fix.probe_layout([0, 1, 2, 3], "dp")])
+        sess = api.Session(prog, 0, executor=ex)
+        sess.load(fix.probe_values())
+        for step in range(2):
+            sess.train_step(fix.probe_feeds(step))
+        report = sess.switch(fix.probe_layout([0, 1, 2, 3], dst_kind))
+        sessions.append((sess, report))
+    (sim, srep), (card, crep) = sessions
+    assert crep.message_count == srep.message_count
+    assert "move" in crep.execute_seconds and not srep.execute_seconds
+    for key in ("weights", "m", "v"):
+        want = sim.weights if key == "weights" else sim.opt_state[key]
+        got = card.weights if key == "weights" else card.opt_state[key]
+        for name, st in want.items():
+            assert got[name].parts.keys() == st.parts.keys()
+            for dev, part in st.parts.items():
+                assert (got[name].parts[dev] == part).all(), (key, name, dev)

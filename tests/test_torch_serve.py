@@ -146,13 +146,16 @@ sys.exit(1 if bad else 0)
     ("repro_torch.launch.train",), ("repro_torch.checkpoint.store",),
     ("repro_torch.data.pipeline",), ("repro_torch.search",),
     ("repro_torch.tree",),
-    ("repro_torch.train.steps", "repro_torch.kernels.autograd")],
+    ("repro_torch.train.steps", "repro_torch.kernels.autograd"),
+    ("repro_torch.elastic", "repro_torch.scenarios.elastic",
+     "repro_torch.scenarios.hetero", "repro_torch.scenarios.mixed_length",
+     "repro_torch.scenarios.search")],
     ids=lambda m: "+".join(m))
 def test_graph_ir_half_imports_no_jax_and_no_reference_package(modules):
     """A fresh process that imports only the graph-IR half of the port
     (the planning copies, the torch runtime, the optimizer) or only the
     trainer's modules (launcher, checkpoints, data, search, train step)
-    holds neither ``jax`` nor any ``repro.*`` module."""
+    or only the elastic driver and the scenario cost models holds neither ``jax`` nor any ``repro.*`` module."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, *modules],
                           cwd=ROOT, capture_output=True, text=True,
                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),

@@ -398,11 +398,26 @@ def test_trainer_cli_runs_on_the_cpu(arch, tmp_path, capsys):
 
 
 def test_trainer_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tlaunch.main(["--device", "cpu", "--reduced", "--elastic-probe"])
     with pytest.raises(NotImplementedError, match="not ported"):
         tlaunch.main(["--device", "cpu", "--reduced", "--arch",
                       "qwen2-vl-72b", "--steps", "1"])
+
+
+def test_trainer_cli_runs_the_elastic_probe(capsys):
+    """``--elastic-probe`` runs the reference's probe trace (shrink, then
+    grow into the pipelined class, m=2) on ``TorchExecutor`` and prints
+    each transition before training starts."""
+    out = tlaunch.main(["--device", "cpu", "--reduced", "--elastic-probe",
+                        "--steps", "1", "--batch", "4", "--seq", "32",
+                        "--no-strategy-report"])
+    text = capsys.readouterr().out
+    assert "elastic probe: 6 step(s), 2 transition(s)" in text
+    lines = [ln for ln in text.splitlines() if "(trace)" in ln]
+    assert len(lines) >= 2
+    assert "shrink (trace) [0, 1, 2, 3] -> [0, 1]" in lines[0]
+    assert "grow (trace) [0, 1] -> [0, 1, 2, 3]" in lines[1]
+    assert text.index("elastic probe") < text.index("step     0")
+    assert np.isfinite(out["losses"]).all()
 
 
 def test_trainer_cli_rejects_a_missing_gpu(monkeypatch):
@@ -465,16 +480,21 @@ def test_search_copy_rejects_what_the_reference_rejects():
 
 def test_search_copy_validates_on_the_simulator_as_the_reference():
     """Top-2 candidates executed as proxy programs on each package's
-    SimulatorExecutor: the same first-step losses; any other executor is
-    refused in the port (a TorchExecutor validator is still to come)."""
+    SimulatorExecutor: the same first-step losses.  The port validates on
+    a ``TorchExecutor`` too (``executors=("sim", "torch")``): its first
+    step's loss and every gradient bitwise the simulator's, for every
+    executed candidate; ``"jax"`` is refused."""
     kw = dict(global_batch=16, seq_len=256, validate_top=2, repeats=1)
     want = jsearch.search(jsearch.cpu_cluster(4), jsearch.tiny_spec(), **kw)
-    got = tsearch.search(tsearch.cpu_cluster(4), tsearch.tiny_spec(), **kw)
+    got = tsearch.search(tsearch.cpu_cluster(4), tsearch.tiny_spec(),
+                         executors=("sim", "torch"), device="cpu", **kw)
     assert [(e.name, e.m, e.schedule, e.loss, e.error)
             for e in got.validation.executed] == \
         [(e.name, e.m, e.schedule, e.loss, e.error)
          for e in want.validation.executed]
-    with pytest.raises(NotImplementedError, match="item 14"):
+    assert len(got.validation.executed) == 2
+    assert all(e.bit_exact is True for e in got.validation.executed)
+    with pytest.raises(NotImplementedError, match="'jax'"):
         tsearch.search(tsearch.cpu_cluster(4), tsearch.tiny_spec(),
                        executors=("sim", "jax"), **kw)
 
