@@ -86,8 +86,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    under each strategy, peak memory.  (c) The strategy search's validator
    with ``executors=("sim", "torch")`` on the card: every executed
    candidate bit-exact.
-8. the training line, the elastic line, the kernels line, then the card
-   line, then the result line.
+8. the async MPMD pipeline executor (``api.AsyncExecutor``: one program
+   per (virtual stage, phase), each virtual stage on its own CUDA stream,
+   the channels on one more).  (a) The torch versions of the reference's
+   ``async:pipeline/{2,4,8}`` (Y and L at m 1, 2, 4 x 1f1b, gpipe,
+   interleaved) and ``async:train/4`` cases (pipe4 training at four (m,
+   kind), the zigzag v=2 at m 1, 2, 4), async and ``serialize=True``,
+   bitwise against the port's ``SimulatorExecutor``, with the lowering's
+   program and channel counts.  (b) Llama-32B blocks at published widths
+   (2 layers, one a stage, weights and feeds from seed 0 with numpy)
+   under tp2 x pp2, 4 microbatches of 1 x 512, one 1F1B step's
+   ``run_schedule`` through ``TorchExecutor``, ``AsyncExecutor``,
+   ``AsyncExecutor(serialize=True)`` and a profiled ``AsyncExecutor``: the
+   loss and every gradient shard of every microbatch bitwise equal across
+   them, B1 launched layers x microbatches times a run (the lowered
+   graph's dispatches x 4), peak memory under the card's; printed: pack,
+   dispatch loop (wall - pack - fetch) and fetch times, the overlap
+   fraction 1 - async / serialized of the loop, the first ticks' device
+   times on each stage (events), the profiled run's kernel busy time over
+   all streams, kernel time summed over the streams and the host syncs
+   that ``torch.cuda.set_sync_debug_mode("warn")`` reports; then B1 at
+   this path's shape against its plain version, its bound and SDPA.
+9. the training line, the elastic line, the pipeline line, the kernels
+   line, then the card line, then the result line.
 
 Needs a visible CUDA device and the repository's ``src/`` beside it; it
 imports nothing of JAX and nothing of the JAX package.
@@ -96,6 +117,7 @@ imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -132,6 +154,15 @@ LOSS_RTOL, GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-6, 2e-4
 #: a normwise bound on each gradient's relative error as well (key biases
 #: excepted: their gradient is mathematically zero)
 GRAD_NORM_RTOL = 2e-4
+#: phase 8: full-width Llama-32B blocks under tp2 x pp2 (one layer a
+#: stage), 4 microbatches of 1 x 512 so that 1F1B has a steady state
+PP_LAYERS, PP_BATCH, PP_MICRO = 2, 4, 4
+#: phase 8's runs in order: each executor twice, the serialized baseline
+#: and the async path in turns (the first run pays the process's first
+#: use of each kernel), then one async run under ``torch.profiler`` and
+#: ``torch.cuda.set_sync_debug_mode("warn")``
+PP_RUNS = ("torch", "serialized", "async", "async", "serialized", "torch",
+           "profiled")
 #: phase 6: the production trainer (``launch/train.py``), each config at
 #: published widths: (arch, layers or None for full depth).  RecurrentGemma
 #: keeps one (rec, rec, attn) superblock: its full 10.4 B parameters need
@@ -816,6 +847,31 @@ def device_breakdown(prof):
     return parts, launches, sorted(top, reverse=True)[:6]
 
 
+def b1_at_shape(torch, fa, ref, shape, b, h, kh, seq, hd):
+    """B1 at a graph-IR path's shape (q (b, h, seq, hd), k and v (b, kh,
+    seq, hd), causal fp32): max |err| against its plain version, the
+    kernel's, the plain version's and SDPA's device times, the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((b, h, seq, hd), generator=gen, device="cuda")
+    k = torch.randn((b, kh, seq, hd), generator=gen, device="cuda")
+    v = torch.randn((b, kh, seq, hd), generator=gen, device="cuda")
+    out = fa.flash_attention(q, k, v, causal=True)
+    err = (out - ref.flash_attention_ref(q, k, v, causal=True)).abs().max() \
+        .item()
+    if err > TOL["float32"]:
+        fail(f"flash at {shape}: max |err| {err}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    bnd, by = attention_bound_ms(q, k, True, None)
+    print(f"  B1 at {shape}: max|err| {err:.3e}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bnd:.4f} ms "
+          f"({by})")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bnd, bound_by=by, max_abs_err=err)
+
+
 def phase_graph_ir(torch, fa, ref):
     """Graph-IR training on ``TorchExecutor``: full-width Qwen2-1.5B
     blocks under dp2 x tp2, then reduced Llama under tp2 x pp2 with two
@@ -940,36 +996,22 @@ def phase_graph_ir(torch, fa, ref):
           + ", ".join(f"{s * 1e3:.1f} ms" for s in opt_s))
 
     # B1 at this path's shape: the four device rows fold into the batch
-    b, h, kh = IR_BATCH // 2 * 4, cfg.n_heads // 2, cfg.n_kv_heads // 2
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    q = torch.randn((b, h, IR_SEQ, cfg.hd), generator=gen, device="cuda")
-    k = torch.randn((b, kh, IR_SEQ, cfg.hd), generator=gen, device="cuda")
-    v = torch.randn((b, kh, IR_SEQ, cfg.hd), generator=gen, device="cuda")
-    out = fa.flash_attention(q, k, v, causal=True)
-    err = (out - ref.flash_attention_ref(q, k, v, causal=True)).abs().max() \
-        .item()
-    if err > TOL["float32"]:
-        fail(f"flash at the graph-IR shape: max |err| {err}")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
-    lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
-    bnd, by = attention_bound_ms(q, k, True, None)
-    shape = (f"B{b} H{h} K{kh} S{IR_SEQ} D{cfg.hd} causal fp32 (graph-IR "
-             f"Qwen2-1.5B dp2 x tp2: 4 device rows folded into the batch)")
-    print(f"  B1 at {shape}: max|err| {err:.3e}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bnd:.4f} ms "
-          f"({by}); {IR_LAYERS} launches a step = "
-          f"{IR_LAYERS * ms:.3f} ms of the step")
-    timing = dict(shape=shape, launches=launches, ms=ms, plain_ms=plain_ms,
-                  library_ms=lib_ms, bound_ms=bnd, bound_by=by,
-                  max_abs_err=err)
+    shape = (f"B{IR_BATCH // 2 * 4} H{cfg.n_heads // 2} K"
+             f"{cfg.n_kv_heads // 2} S{IR_SEQ} D{cfg.hd} causal fp32 "
+             f"(graph-IR Qwen2-1.5B dp2 x tp2: 4 device rows folded into the "
+             f"batch)")
+    timing = b1_at_shape(torch, fa, ref, shape, IR_BATCH // 2 * 4,
+                         cfg.n_heads // 2, cfg.n_kv_heads // 2, IR_SEQ,
+                         cfg.hd)
+    print(f"    {IR_LAYERS} launches a step = {IR_LAYERS * timing['ms']:.3f} "
+          f"ms of the step")
+    timing["launches"] = launches
     # phase 7 holds its elastic run to this uninterrupted one
     run = dict(cfg=cfg, graph=prog.graph, feeds=feeds, weights=ws,
                losses=losses,
                final={"weights": sess.weights, "m": sess.opt_state["m"],
                       "v": sess.opt_state["v"]})
-    del sess, ex, q, k, v, out
+    del sess, ex
     torch.cuda.empty_cache()
 
     # the pipeline path: reduced Llama, tp2 x pp2, two microbatches, 1f1b
@@ -1715,6 +1757,353 @@ def phase_elastic(torch, fa, ir_run):
             "run_s": wall, "compare_s": t_cmp, "phase_s": t_phase}
 
 
+def microbatch_states(api, tplan, feeds, weights):
+    """Per-microbatch leaf states of a micro train plan, as ``Session``
+    builds them: each placeholder's feed split along its microbatch dim
+    and scattered under its annotation; the parameters shared."""
+    import numpy as np
+    m = tplan.num_microbatches
+    states = [dict(weights) for _ in range(m)]
+    for t in tplan.graph.placeholders():
+        pieces = np.split(feeds[t.name], m, axis=tplan.mb_roles[t.name])
+        for st, piece in zip(states, pieces):
+            st[t.name] = api.scatter(piece, t.annots[tplan.strategy_index],
+                                     rng=np.random.default_rng(0))
+    return states
+
+
+def runs_differ(want, got) -> list:
+    """(microbatch, tensor, device) of every shard that is not bitwise
+    equal."""
+    import numpy as np
+    return [(j, name, dev) for j, (a, b) in enumerate(zip(want, got))
+            for name, st in a.items() for dev, part in st.parts.items()
+            if not np.array_equal(b[name].parts[dev], part)]
+
+
+def phase_async_exact():
+    """Phase 8 (a): the torch versions of the reference's
+    ``async:pipeline/{2,4,8}`` and ``async:train/4`` selftest cases on the
+    card, async and serialized, bitwise against the port's simulator."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.api.testing import (loss_pipeline_program,
+                                         loss_pipeline_values,
+                                         zigzag_program, zigzag_values)
+
+    t0 = time.perf_counter()
+
+    def executors():
+        return (api.SimulatorExecutor(), api.AsyncExecutor(),
+                api.AsyncExecutor(serialize=True))
+
+    def label(ex):
+        serial = getattr(ex, "serialize", False)
+        return f"{ex.name}{'/serialized' if serial else ''}"
+
+    def same(a, b, what):
+        for dev, part in a.parts.items():
+            if not np.array_equal(b.parts[dev], part):
+                fail(f"async exact: {what} dev {dev} differs from the "
+                     f"simulator")
+
+    xv, ws, want_y = loss_pipeline_values(seed=11)
+    cases = 0
+    for n in (2, 4, 8):
+        prog = loss_pipeline_program(n, name=f"pipe{n}")
+        runs = {}
+        for ex in executors():
+            sess = api.Session(prog, f"pipe{n}", executor=ex)
+            sess.load(ws)
+            for m in (1, 2, 4):
+                for kind in (("1f1b", "gpipe", "interleaved") if m > 1
+                             else ("1f1b",)):
+                    r = sess.run({"X": xv}, fetches=["Y", "L"],
+                                 num_microbatches=m, schedule=kind)
+                    if not np.array_equal(r.value("Y"), want_y) or \
+                            float(r.value("L")) != float(want_y.sum()):
+                        fail(f"async exact: pipe{n} {label(ex)} m={m} {kind}")
+                    runs[(label(ex), m, kind)] = r
+        for (exn, m, kind), r in runs.items():
+            if exn != "sim":
+                cases += 1
+                for t in ("Y", "L"):
+                    same(runs[("sim", m, kind)].shards(t), r.shards(t),
+                         f"pipe{n} {t} {exn} m={m} {kind}")
+        lw = api.AsyncExecutor().lowered(prog.compile_train(f"pipe{n}"))
+        n_virtual = prog.compile(f"pipe{n}").n_stages
+        kinds = [ch.kind for ch in lw.channels]
+        if len(lw.programs) != 2 * n_virtual or \
+                (n_virtual > 1 and "p2p" not in kinds) or \
+                (n >= 4 and "reduce" not in kinds):
+            fail(f"async exact: pipe{n} lowered to {len(lw.programs)} "
+                 f"programs, channels {kinds}")
+        print(f"  pipe{n}: {len(lw.programs)} stage programs, channels "
+              f"{kinds}; Y and L bitwise the simulator's at 7 (m, kind)")
+
+    prog = loss_pipeline_program(4, name="pipe4")
+    base = None
+    for m, kind in ((1, "1f1b"), (2, "1f1b"), (4, "1f1b"), (4, "gpipe")):
+        for ex in executors():
+            sess = api.Session(prog, "pipe4", executor=ex)
+            sess.load(ws)
+            r = sess.train_step({"X": xv}, num_microbatches=m, schedule=kind)
+            if r.loss != float(want_y.sum()):
+                fail(f"async exact: pipe4 train {label(ex)} loss {r.loss}")
+            if base is None:
+                base = (r, dict(sess.weights))
+                continue
+            cases += 1
+            for t in ws:
+                same(base[0].grads[t], r.grads[t],
+                     f"pipe4 grad {t} {label(ex)} m={m} {kind}")
+                same(base[1][t], sess.weights[t],
+                     f"pipe4 weight {t} {label(ex)} m={m} {kind}")
+    zx, zws, zy = zigzag_values(seed=13)
+    zprog = zigzag_program(4, name="zig4")
+    base = None
+    for m in (1, 2, 4):
+        for ex in executors():
+            sess = api.Session(zprog, "zig4", executor=ex)
+            sess.load(zws)
+            r = sess.train_step({"X": zx}, num_microbatches=m,
+                                schedule="interleaved")
+            if r.loss != float(zy.sum()):
+                fail(f"async exact: zig4 {label(ex)} m={m} loss {r.loss}")
+            if base is None:
+                base = r
+                continue
+            cases += 1
+            for t in zws:
+                same(base.grads[t], r.grads[t],
+                     f"zig4 grad {t} {label(ex)} m={m}")
+    print(f"  pipe4 training at 4 (m, kind) and zig4 interleaved v=2 at m 1, "
+          f"2, 4: gradients and weights bitwise; {cases} async / serialized "
+          f"runs against the simulator in {time.perf_counter() - t0:.1f} s")
+    return cases
+
+
+def device_activity(prof):
+    """Device intervals of a profiled window: (kernel busy ms as the union
+    of kernel intervals over all streams, the sum of kernel ms, copy ms
+    (host<->device), the window's device span ms, kernel count)."""
+    from torch.autograd import DeviceType
+    kern, copies = [], 0.0
+    lo, hi = float("inf"), 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        lo, hi = min(lo, a), max(hi, b)
+        key = e.name.lower()
+        if "memcpy" in key or "memset" in key:
+            copies += (b - a) / 1e3
+        else:
+            kern.append((a, b))
+    kern.sort()
+    busy, end = 0.0, float("-inf")
+    for a, b in kern:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return (busy / 1e3, sum(b - a for a, b in kern) / 1e3, copies,
+            (hi - lo) / 1e3 if kern else 0.0, len(kern))
+
+
+def phase_async(torch, fa, ref):
+    """Phase 8: the async MPMD pipeline executor on the card.  (a) the
+    exact-data selftest programs, bitwise the simulator's; (b) full-width
+    Llama-32B blocks under tp2 x pp2, one 1F1B step of 4 microbatches
+    through ``TorchExecutor``, ``AsyncExecutor`` and its serialized
+    baseline, bitwise across the three, with the time split, the overlap,
+    the device's concurrency, the ticks' device times, peak memory and the
+    host syncs.  Returns B1's launches and timings at this path's shape
+    and the numbers of (b)."""
+    import warnings
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.models.graph_block import block_program
+
+    print("== phase 8: the async MPMD pipeline executor (one stream per "
+          "virtual stage, one for the channels)")
+    t_phase = time.perf_counter()
+    exact_cases = phase_async_exact()
+
+    cfg = get_config("llama_32b")
+    print(f"  (b) {cfg.name} full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}), {PP_LAYERS} layers, batch "
+          f"{PP_BATCH}, seq {IR_SEQ}, tp2 x pp2 on 4 virtual devices, "
+          f"{PP_MICRO} microbatches, 1f1b")
+    prog = block_program(cfg, batch=PP_BATCH, seq=IR_SEQ, n_layers=PP_LAYERS,
+                         dp=1, tp=2, pp=2)
+    rng = np.random.default_rng(0)
+    feeds = block_feeds(cfg, rng, PP_BATCH, IR_SEQ)
+    ws = block_weights(prog, rng)
+    n_params = sum(w.size for w in ws.values())
+    holder = api.Session(prog, 0, executor=api.SimulatorExecutor())
+    holder.load(ws)
+    del ws
+    tplan = prog.compile_train(0, num_microbatches=PP_MICRO)
+    fetches = [tplan.loss_name] + [tplan.grad_map[t.name]
+                                   for t in tplan.graph.parameters()]
+    states = microbatch_states(api, tplan, feeds, holder.weights)
+    sched = tplan.schedule(PP_MICRO, "1f1b")
+    print(f"  {n_params / 1e6:.1f} M parameters, random from seed 0 (numpy); "
+          f"{len(sched.ticks)} ticks")
+
+    executors = {"torch": api.TorchExecutor(), "async": api.AsyncExecutor(),
+                 "serialized": api.AsyncExecutor(serialize=True),
+                 "profiled": api.AsyncExecutor()}
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    want, runs = None, []
+    lw = executors["async"].lowered(tplan, fetches)
+    print("  " + lw.describe().replace("\n", "\n  "))
+    fa.launches = 0
+    for i, kind in enumerate(PP_RUNS):
+        ex = executors[kind]
+        label = f"run {i + 1} {kind}"
+        lw = ex.lowered(tplan, fetches, PP_MICRO) if kind == "torch" \
+            else ex.lowered(tplan, fetches)
+        dispatches = lw.stats.kernel_dispatches
+        if dispatches != PP_LAYERS or lw.stats.ref_dispatches:
+            fail(f"async: {label} lowered {dispatches} attention classes "
+                 f"on B1 and {lw.stats.ref_dispatches} plain, expected "
+                 f"{PP_LAYERS} on B1")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        alloc0 = torch.cuda.memory_stats()
+        ex.times.reset()
+        before = fa.launches
+        profiled = kind == "profiled"
+        syncs: list = []
+        t0 = time.perf_counter()
+        if profiled:
+            with warnings.catch_warnings(record=True) as caught, \
+                    profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) as prof:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    got = ex.run_schedule(tplan, sched, states, fetches)
+                    torch.cuda.synchronize()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs = [w for w in caught
+                     if "synchroniz" in str(w.message).lower()]
+        else:
+            got = ex.run_schedule(tplan, sched, states, fetches)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = fa.launches - before
+        peak = torch.cuda.max_memory_allocated()
+        t = ex.times.as_dict()
+        loop = wall - t["pack"] - t["fetch"]
+        alloc = {k: torch.cuda.memory_stats().get(k, 0) - alloc0.get(k, 0)
+                 for k in ("num_device_alloc", "num_device_free",
+                           "num_alloc_retries", "num_sync_all_streams")}
+        rec = dict(executor=kind, wall_s=wall, pack_s=t["pack"], loop_s=loop,
+                   fetch_s=t["fetch"], peak_gib=peak / 2**30,
+                   b1_launches=launched, allocator=alloc,
+                   loss=[float(np.asarray(api.gather(r[tplan.loss_name])))
+                         for r in got])
+        print(f"  {label}: wall {wall:.3f} s = pack {t['pack']:.3f} + "
+              f"dispatch loop {loop:.3f} + fetch {t['fetch']:.3f} s; B1 "
+              f"launches {launched} (dispatches {dispatches} x "
+              f"{PP_MICRO}); peak {peak / 2**30:.2f} GiB; allocator "
+              f"{alloc}; losses "
+              + ", ".join(f"{x:.9e}" for x in rec["loss"]))
+        if launched != dispatches * PP_MICRO:
+            fail(f"async: {label} launched B1 {launched} times, expected "
+                 f"{dispatches * PP_MICRO}")
+        if peak >= total_mem:
+            fail(f"async: {label} peak {peak} B over the card's {total_mem}")
+        if not all(np.isfinite(rec["loss"])):
+            fail(f"async: {label} losses {rec['loss']}")
+        if want is None:
+            want = got
+        else:
+            bad = runs_differ(want, got)
+            print(f"    loss and {len(fetches) - 1} gradients x "
+                  f"{PP_MICRO} microbatches vs torch: "
+                  f"{'bitwise' if not bad else f'{len(bad)} shards differ'}")
+            if bad:
+                fail(f"async: {label} differs from TorchExecutor at "
+                     f"{bad[:6]}")
+        del got
+        if kind != "torch":
+            ticks = {}
+            first = lw.last_ticks[0]
+            for r in lw.last_ticks:
+                ticks.setdefault(r.stage, [])
+                if len(ticks[r.stage]) < 4:
+                    ticks[r.stage].append(
+                        (r.microbatch, r.phase,
+                         first.start.elapsed_time(r.start),
+                         first.start.elapsed_time(r.end),
+                         (r.host_start - first.host_start) * 1e3,
+                         (r.host_end - first.host_start) * 1e3))
+            rec["ticks"] = ticks
+            for stage, tk in sorted(ticks.items()):
+                print(f"    stage {stage} first ticks (mb phase: device "
+                      f"start..end | host issue start..end, ms from the "
+                      f"first tick's): " + "; ".join(
+                          f"{mb} {ph}: {a:.1f}..{b:.1f} | {c:.1f}..{d:.1f}"
+                          for mb, ph, a, b, c, d in tk))
+        if profiled:
+            busy, ksum, copies, span, nk = device_activity(prof)
+            if not nk:
+                fail("async: torch.profiler saw no kernel on the device")
+            rec.update(kernel_busy_ms=busy, kernel_sum_ms=ksum,
+                       copy_ms=copies, device_span_ms=span, kernels=nk)
+            where: dict = {}
+            for w in syncs:
+                key = f"{Path(w.filename).name}:{w.lineno}"
+                where[key] = where.get(key, 0) + 1
+            rec["host_syncs"] = where
+            print(f"    torch.profiler: kernels busy {busy:.1f} ms (union "
+                  f"over streams), kernel time summed over streams "
+                  f"{ksum:.1f} ms (concurrency {ksum / busy:.3f}), copies "
+                  f"{copies:.1f} ms, {nk} kernels; over the wall "
+                  f"{wall * 1e3:.1f} ms: kernels busy {busy / wall / 10:.1f}%"
+                  f", over the dispatch loop {loop * 1e3:.1f} ms: "
+                  f"{busy / loop / 10:.1f}%")
+            print(f"    host syncs under set_sync_debug_mode('warn'): "
+                  f"{sum(where.values())} at "
+                  + (", ".join(f"{k} x{n}" for k, n in sorted(where.items()))
+                     or "none"))
+        runs.append(rec)
+
+    def loop_median(kind):
+        return statistics.median(r["loop_s"] for r in runs
+                                 if r["executor"] == kind)
+    overlap = 1 - loop_median("async") / loop_median("serialized")
+    print(f"  overlap fraction of the dispatch loop 1 - async / serialized "
+          f"(medians of the unprofiled runs) = 1 - "
+          f"{loop_median('async'):.3f} / {loop_median('serialized'):.3f} = "
+          f"{overlap:.4f}")
+    del states, holder, want
+    torch.cuda.empty_cache()
+
+    # B1 at this path's shape: a stage's two rows fold into the batch
+    b, h = 2 * PP_BATCH // PP_MICRO, cfg.n_heads // 2
+    shape = (f"B{b} H{h} K{cfg.n_kv_heads // 2} S{IR_SEQ} D{cfg.hd} causal "
+             f"fp32 (async Llama-32B tp2 x pp2: a stage's 2 device rows "
+             f"folded into the batch)")
+    timing = b1_at_shape(torch, fa, ref, shape, b, h, cfg.n_kv_heads // 2,
+                         IR_SEQ, cfg.hd)
+    timing["launches"] = sum(r["b1_launches"] for r in runs)
+    t_phase = time.perf_counter() - t_phase
+    print(f"  phase 8: {t_phase:.1f} s")
+    return timing, {"exact_cases": exact_cases, "params": int(n_params),
+                    "overlap": overlap, "runs": runs, "phase_s": t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -1780,6 +2169,8 @@ def main() -> int:
     elastic = phase_elastic(torch, fa, ir_run)
     total["flash"] += elastic["launches"]
     del ir_run
+    pp_b1, pipeline = phase_async(torch, fa, ref)
+    total["flash"] += pp_b1["launches"]
 
     def training(kind):
         """Each training config's launches a step and plain recompute."""
@@ -1810,6 +2201,7 @@ def main() -> int:
                         "shrink/grow: dp2 x tp2, then tp2; the rows folded "
                         "into the batch; times at phase 5's shape)",
          "launches": elastic["launches"]},
+        pp_b1,
         {"shape": "B4 H12 K2 S512 D128 causal bf16 (tensor cores)",
          "launches": 0, **fa_t[(128, "bfloat16")]},
         {"shape": "B4 H16 K1 S512 D256 causal window 2048 bf16 (tensor "
@@ -1836,6 +2228,7 @@ def main() -> int:
         arch: {k: v for k, v in t.items() if k != "learn_losses"}
         for arch, t in train.items()}))
     print("elastic: " + json.dumps(elastic))
+    print("pipeline: " + json.dumps(pipeline))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

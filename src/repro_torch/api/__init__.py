@@ -28,8 +28,11 @@ One coherent compile-and-run surface over the paper's abstractions::
 
 Executors are pluggable (:class:`Executor`): ``SimulatorExecutor`` runs
 the virtual-device numpy spec, ``TorchExecutor`` runs every virtual device
-as one row of stacked buffers on one torch device (``runtime.program``) —
-bit-exact against each other on exactly representable data.
+as one row of stacked buffers on one torch device (``runtime.program``),
+``AsyncExecutor`` runs the same rows as one program per pipeline stage
+over the explicit timetable, each stage on its own CUDA stream
+(``runtime.async_program``) — bit-exact against each other on exactly
+representable data.
 """
 
 from repro_torch.core.annotations import (DG, DS, DUP, PARTIAL, HSPMD, replicated,
@@ -50,6 +53,8 @@ from repro_torch.core.switching import (SwitchOutcome, SwitchReport,
 from repro_torch.core.topology import (NvlinkIbTopology, Topology,
                                        UniformTopology)
 
+from repro_torch.runtime.async_program import AsyncExecutor
+
 from .executors import (Executor, SimulatorExecutor, TorchExecutor,
                         get_executor)
 from .program import CompiledPlan, CompileError, CostEstimate, Program
@@ -63,6 +68,7 @@ estimate_switch = plan_tensor_switch
 
 __all__ = [
     "DG", "DS", "DUP", "PARTIAL", "HSPMD", "replicated", "spmd",
+    "AsyncExecutor",
     "CommPlan", "CompileError", "CompiledPlan", "CostEstimate",
     "DeductionError", "DeductionReport", "ExecItem", "ExecutableGraph",
     "Executor", "GradError", "Graph", "MicrobatchError",

@@ -1,7 +1,8 @@
 """Pluggable executors: run a CompiledPlan's per-device ExecItems.
 
 The :class:`Executor` protocol is the seam between planning and
-execution.  Two implementations ship:
+execution.  Three implementations ship (the third, the per-stage
+``AsyncExecutor``, lives in ``runtime.async_program``):
 
 * :class:`SimulatorExecutor` — interprets the specialized per-device
   programs with numpy over the virtual-device simulator
@@ -351,14 +352,18 @@ class TorchExecutor:
 
 
 def _executor_registry() -> dict:
-    return {"sim": SimulatorExecutor, "torch": TorchExecutor}
+    # AsyncExecutor lives in runtime/ (it is a lowering, like
+    # LoweredGraph)
+    from repro_torch.runtime.async_program import AsyncExecutor
+    return {"sim": SimulatorExecutor, "torch": TorchExecutor,
+            "async": AsyncExecutor}
 
 
 def get_executor(name: str, **kwargs) -> Executor:
-    """Executor registry: ``"sim"`` or ``"torch"`` (the string form used
-    by CLI flags).  Unknown names raise ``ValueError`` listing the valid
-    options; unknown options raise ``TypeError`` instead of vanishing
-    silently."""
+    """Executor registry: ``"sim"``, ``"torch"`` or ``"async"`` (the
+    string form used by CLI flags).  Unknown names raise ``ValueError``
+    listing the valid options; unknown options raise ``TypeError`` instead
+    of vanishing silently."""
     registry = _executor_registry()
     cls = registry.get(name)
     if cls is None:

@@ -239,6 +239,9 @@ class PlanLowering:
         self.n_mesh = len(order)
         self.device = torch.device(device)
         self.stats = LoweringStats()
+        # a reducing plan (AR / RS / SplitAR / SplitRS groups) rather than
+        # one that only copies
+        self.has_reduce = any(g.reduce for s in plan.steps for g in s.groups)
 
         self._stage_rounds: list[list[_Round]] = []
         self._uniform_stages: list[dict | None] = []

@@ -30,11 +30,19 @@ Microbatched runs (pipeline schedules) loop over the microbatches in
 Python, running the same emissions each time where the reference scans
 one XLA program; the outputs are per-microbatch, as in the reference's
 ``run_microbatches``.
+
+The per-segment emission (``run_segment`` / ``run_class``, the
+reference's ``emit_segment``), the setup both lowerings share
+(:class:`StackedGraph`) and the fetch (``fetch_shards``) serve this
+module's whole-graph :class:`LoweredGraph` and the per-stage
+``runtime.async_program.AsyncLoweredGraph`` alike, so the two run the same
+class code on the same rows.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -91,16 +99,18 @@ def _rows_of(positions: list[int], device):
     return torch.as_tensor(positions, device=device)
 
 
-def unpack_rows(graph: Graph, k: int, shapes, order: DeviceOrder,
-                name: str, rows: np.ndarray) -> ShardedTensor:
-    """A stacked host buffer -> ShardedTensor under ``name``'s annotation
-    (parts are views into the buffer; callers never mutate shards in
-    place)."""
+def fetch_shards(graph: Graph, k: int, shapes, order: DeviceOrder,
+                 name: str, buf: torch.Tensor) -> ShardedTensor:
+    """A stacked buffer -> ShardedTensor under ``name``'s annotation.
+    Only each device's box is copied to the host: rows that hold no shard
+    and the padding stay on the device.  On the CPU the parts are views
+    into ``buf`` (callers never mutate shards in place)."""
     annot = graph.tensors[name].annots[k]
     shape = shapes[name]
     parts = {
-        dev: rows[order.pos(dev)][
-            tuple(slice(0, s) for s in annot.device_shape(dev, shape))]
+        dev: buf[order.pos(dev)][
+            tuple(slice(0, s) for s in annot.device_shape(dev, shape))
+        ].cpu().numpy()
         for dev in annot.devices}
     return ShardedTensor(shape, annot, parts)
 
@@ -110,8 +120,9 @@ class RunTimes:
     packing leaves and copying them to the device (``pack``), the
     segments (``compute``, of which ``attention``), the comm plans
     (``comm``) and copying fetches back and unpacking them (``fetch``).
-    The device is synchronized at each boundary only while ``sync`` is
-    set, so with it off the device parts are enqueue times."""
+    Waiting for the device to finish what is fetched counts as
+    ``compute``.  The device is synchronized at each boundary only while
+    ``sync`` is set, so with it off the device parts are enqueue times."""
 
     PARTS = ("pack", "compute", "attention", "comm", "fetch")
 
@@ -126,39 +137,134 @@ class RunTimes:
     def as_dict(self) -> dict[str, float]:
         return {p: getattr(self, p) for p in self.PARTS}
 
+    def mark(self, part: str, t0: float, device: torch.device) -> float:
+        """Add the seconds since ``t0`` to ``part``; returns now."""
+        if self.sync and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        setattr(self, part, getattr(self, part) + t - t0)
+        return t
 
-class LoweredGraph:
-    """A deduced graph + strategy lowered onto one torch device, reusable
-    over fresh shard values.
 
-    With ``num_microbatches=m > 1`` the graph passed in is the MICRO graph
-    (shapes already scaled; ``Program.compile_micro``) and
-    :meth:`run_microbatches` runs it once per microbatch."""
+@dataclass
+class SegmentRun:
+    """What running one live compute segment needs: its class rows (a
+    slice or an index tensor each), its live-outs and their pads."""
+
+    seg: object
+    class_rows: list
+    live_out: list[str]
+    out_pads: dict[str, tuple[int, ...]]
+
+
+def attention(ins, attrs) -> torch.Tensor:
+    """B1 over a class: the class rows fold into the batch, one launch."""
+    n, b = ins[0].shape[:2]
+    q, k, v = (x.reshape((-1,) + tuple(x.shape[2:])) for x in ins)
+    y = flash.flash_attention(q, k, v, causal=attrs.get("causal", True))
+    return y.reshape((n, b) + tuple(y.shape[1:]))
+
+
+def run_class(seg, cls, rows, dtypes, tenv, device, times: RunTimes
+              ) -> dict:
+    """Run one class's local program over its rows; returns its
+    exact-shaped ``(n_class, *local)`` values."""
+    n = cls.n_devices
+    exact: dict[str, torch.Tensor] = {}
+    for op, spec in zip(seg.ops, cls.specs):
+        if spec is None:
+            continue        # this class does not run the op
+        ins = []
+        for t, shp in zip(op.inputs, spec.in_shapes):
+            v = exact.get(t.name)
+            if v is None:
+                v = tenv[t.name][rows]
+                if tuple(v.shape[1:]) != tuple(shp):
+                    v = v[(slice(None),) + tuple(slice(0, s) for s in shp)]
+            ins.append(v)
+        name = op.outputs[0].name
+        if spec.impl == "cuda":
+            t0 = time.perf_counter()
+            y = attention(ins, op.attrs)
+            times.mark("attention", t0, device)
+        else:
+            y = torch_ops.stacked_apply(op.kind, ins, op.attrs,
+                                        spec.out_shape, n, device)
+            if y is None:   # no stacked form: one call per row
+                y = torch.stack([torch_ops.local_apply(
+                    op.kind, [x[j] for x in ins], op.attrs,
+                    spec.out_shape, device) for j in range(n)])
+        exact[name] = y.to(torch_ops.torch_dtype(dtypes[name]))
+    return exact
+
+
+def run_segment(sr: SegmentRun, tenv, *, n_mesh: int, device,
+                times: RunTimes) -> None:
+    """Run every class of one live segment over its rows and put the
+    live-outs into ``tenv`` as stacked ``(n_mesh, *pad)`` buffers (rows
+    of devices that do not run the segment stay zero)."""
+    seg = sr.seg
+    dtypes: dict[str, np.dtype] = {}
+    for op in seg.ops:
+        dtypes[op.outputs[0].name] = result_dtype(
+            op.kind,
+            [dtypes[t.name] if t.name in dtypes
+             else torch_ops.numpy_dtype(tenv[t.name].dtype)
+             for t in op.inputs])
+    all_rows = slice(0, n_mesh)
+    outs: dict[str, torch.Tensor] = {}
+    for cls, rows in zip(seg.classes, sr.class_rows):
+        exact = run_class(seg, cls, rows, dtypes, tenv, device, times)
+        for name in sr.live_out:
+            y = exact.get(name)
+            if y is None:
+                continue
+            pad = sr.out_pads[name]
+            if isinstance(rows, slice) and rows == all_rows \
+                    and tuple(y.shape[1:]) == pad:
+                outs[name] = y       # one class over every row
+                continue
+            buf = outs.get(name)
+            if buf is None:
+                buf = outs[name] = torch.zeros(
+                    (n_mesh,) + pad,
+                    dtype=torch_ops.torch_dtype(dtypes[name]),
+                    device=device)
+            buf[(rows,) + tuple(slice(0, s) for s in y.shape[1:])] = y
+    for name in sr.live_out:
+        tenv[name] = outs[name] if name in outs else torch.zeros(
+            (n_mesh,) + sr.out_pads[name],
+            dtype=torch_ops.torch_dtype(dtypes[name]), device=device)
+
+
+class StackedGraph:
+    """What both lowerings of a deduced graph + strategy onto one torch
+    device share (this module's :class:`LoweredGraph` and
+    ``runtime.async_program.AsyncLoweredGraph``): bound shapes, resolved
+    comm plans, the device order (one stacked row per logical device),
+    the leaves and fetches, the attention gate per class, packing leaves
+    and fetching results."""
 
     def __init__(self, graph: Graph, strategy: int = 0, *, device,
                  shape_env: dict[str, int] | None = None,
                  topology: Topology | None = None,
-                 fetches=None,
-                 num_microbatches: int = 1, times: RunTimes | None = None):
+                 fetches=None, times: RunTimes | None = None):
         self.graph = graph
         self.k = strategy
         self.device = torch.device(device)
-        if num_microbatches < 1:
-            raise ValueError(
-                f"num_microbatches must be >= 1 (got {num_microbatches})")
-        self.num_microbatches = num_microbatches
         self.times = times if times is not None else RunTimes()
         env = shape_env or {}
         self.shapes = {name: bind_shape(t.shape, env)
                        for name, t in graph.tensors.items()}
-        resolved = resolve_comm_ops(graph, strategy, topology, shape_env)
-        plans = {id(rc.op): rc.plan for rc in resolved}
+        self.resolved = resolve_comm_ops(graph, strategy, topology,
+                                         shape_env)
+        self._plans = {id(rc.op): rc.plan for rc in self.resolved}
 
         devs: set[int] = set()
         for t in graph.tensors.values():
             if t.annots:
                 devs |= set(t.annots[strategy].devices)
-        for plan in plans.values():
+        for plan in self._plans.values():
             for annot in plan.annots:
                 devs |= set(annot.devices)
         self.order = DeviceOrder(tuple(sorted(devs)))
@@ -174,52 +280,55 @@ class LoweredGraph:
         self._per_mb = {t.name for t in self.leaves
                         if t.producer is not None
                         and t.producer.kind == "placeholder"}
-
         self.stats = LoweringStats()
-        self._lowerings: dict[int, PlanLowering] = {}
-        for op in graph.comm_ops:
-            pl = PlanLowering(plans[id(op)], self.shapes[op.inputs[0].name],
-                              self.order, self.device)
-            self._lowerings[id(op)] = pl
-            self.stats.merge(pl.stats)
 
-        # Kernel dispatch is decided statically, per specialization class,
-        # from the device-LOCAL shard shapes; the decision takes part in
-        # the class partition, as in the reference.
-        k, shapes = strategy, self.shapes
+    def _lowering(self, op) -> PlanLowering:
+        pl = PlanLowering(self._plans[id(op)], self.shapes[op.inputs[0].name],
+                          self.order, self.device)
+        self.stats.merge(pl.stats)
+        return pl
 
-        def impl_of(op, dev):
-            if op.kind != "attention":
-                return ""
-            qs = shapes[op.inputs[0].name]
-            ks = shapes[op.inputs[1].name]
-            return select_attention_impl(
-                tuple(op.inputs[0].annots[k].device_shape(dev, qs)),
-                tuple(op.inputs[1].annots[k].device_shape(dev, ks)),
-                self.device)
+    def _impl_of(self, op, dev) -> str:
+        """Kernel dispatch, decided statically per specialization class
+        from the device-LOCAL shard shapes; the decision takes part in the
+        class partition, as in the reference."""
+        if op.kind != "attention":
+            return ""
+        k, shapes = self.k, self.shapes
+        qs = shapes[op.inputs[0].name]
+        ks = shapes[op.inputs[1].name]
+        return select_attention_impl(
+            tuple(op.inputs[0].annots[k].device_shape(dev, qs)),
+            tuple(op.inputs[1].annots[k].device_shape(dev, ks)),
+            self.device)
 
-        self.ir = partition_graph(graph, strategy, shapes=shapes,
-                                  impl_of=impl_of,
-                                  devices=self.order.devices)
-        self._seg_live = segment_liveness(graph, self.ir.segments,
-                                          self.fetches)
-        self._all_rows = slice(0, self.n_mesh)
-        self._out_pads: dict[str, tuple[int, ...]] = {}
-        self._class_rows: dict[int, list] = {}
-        for seg in self.ir.segments:
-            live_out = self._seg_live[id(seg)][1]
+    def _partition(self, ops=None):
+        return partition_graph(self.graph, self.k, shapes=self.shapes,
+                               impl_of=self._impl_of,
+                               devices=self.order.devices, ops=ops)
+
+    def _plan_segments(self, segments, fetches) -> dict[int, SegmentRun]:
+        """``id(segment) -> SegmentRun`` for the live segments (dead ones
+        never run), counting them and their attention classes into
+        ``stats``."""
+        graph, k = self.graph, self.k
+        seg_live = segment_liveness(graph, segments, fetches)
+        runs: dict[int, SegmentRun] = {}
+        for seg in segments:
+            live_out = seg_live[id(seg)][1]
             if not live_out:
-                continue                    # dead segment: never run
+                continue
             self.stats.compute_segments += 1
             self.stats.class_runs += seg.n_classes
             if seg.is_homogeneous():
                 self.stats.straightline_segments += 1
-            for n in live_out:
-                self._out_pads[n] = pad_shape(graph.tensors[n].annots[k],
-                                              shapes[n])
-            self._class_rows[id(seg)] = [
-                _rows_of([self.order.pos(d) for d in cls.devices],
-                         self.device) for cls in seg.classes]
+            runs[id(seg)] = SegmentRun(
+                seg,
+                [_rows_of([self.order.pos(d) for d in cls.devices],
+                          self.device) for cls in seg.classes],
+                live_out,
+                {n: pad_shape(graph.tensors[n].annots[k], self.shapes[n])
+                 for n in live_out})
             for cls in seg.classes:
                 for op, spec in zip(seg.ops, cls.specs):
                     if op.kind == "attention" and spec is not None:
@@ -227,107 +336,11 @@ class LoweredGraph:
                             self.stats.kernel_dispatches += 1
                         else:
                             self.stats.ref_dispatches += 1
+        return runs
 
-    # -- emission ------------------------------------------------------------
-
-    def _mark(self, part: str, t0: float) -> float:
-        if self.times.sync and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        setattr(self.times, part, getattr(self.times, part) + t - t0)
-        return t
-
-    def _attention(self, ins, attrs) -> torch.Tensor:
-        """B1 over a class: the class rows fold into the batch, one
-        launch."""
-        n, b = ins[0].shape[:2]
-        q, k, v = (x.reshape((-1,) + tuple(x.shape[2:])) for x in ins)
-        y = flash.flash_attention(q, k, v,
-                                  causal=attrs.get("causal", True))
-        return y.reshape((n, b) + tuple(y.shape[1:]))
-
-    def _run_class(self, seg, cls, rows, dtypes, tenv) -> dict:
-        """Run one class's local program over its rows; returns its
-        exact-shaped ``(n_class, *local)`` values."""
-        n = cls.n_devices
-        exact: dict[str, torch.Tensor] = {}
-        for op, spec in zip(seg.ops, cls.specs):
-            if spec is None:
-                continue        # this class does not run the op
-            ins = []
-            for t, shp in zip(op.inputs, spec.in_shapes):
-                v = exact.get(t.name)
-                if v is None:
-                    v = tenv[t.name][rows]
-                    if tuple(v.shape[1:]) != tuple(shp):
-                        v = v[(slice(None),)
-                              + tuple(slice(0, s) for s in shp)]
-                ins.append(v)
-            name = op.outputs[0].name
-            if spec.impl == "cuda":
-                t0 = time.perf_counter()
-                y = self._attention(ins, op.attrs)
-                self._mark("attention", t0)
-            else:
-                y = torch_ops.stacked_apply(op.kind, ins, op.attrs,
-                                            spec.out_shape, n, self.device)
-                if y is None:   # no stacked form: one call per row
-                    y = torch.stack([torch_ops.local_apply(
-                        op.kind, [x[j] for x in ins], op.attrs,
-                        spec.out_shape, self.device) for j in range(n)])
-            exact[name] = y.to(torch_ops.torch_dtype(dtypes[name]))
-        return exact
-
-    def _run_segment(self, seg, tenv) -> None:
-        live_in, live_out = self._seg_live[id(seg)]
-        if not live_out:
-            return              # dead code: nothing escapes
-        dtypes: dict[str, np.dtype] = {}
-        for op in seg.ops:
-            dtypes[op.outputs[0].name] = result_dtype(
-                op.kind,
-                [dtypes[t.name] if t.name in dtypes
-                 else torch_ops.numpy_dtype(tenv[t.name].dtype)
-                 for t in op.inputs])
-        outs: dict[str, torch.Tensor] = {}
-        for cls, rows in zip(seg.classes, self._class_rows[id(seg)]):
-            exact = self._run_class(seg, cls, rows, dtypes, tenv)
-            for name in live_out:
-                y = exact.get(name)
-                if y is None:
-                    continue
-                pad = self._out_pads[name]
-                if isinstance(rows, slice) and rows == self._all_rows \
-                        and tuple(y.shape[1:]) == pad:
-                    outs[name] = y       # one class over every row
-                    continue
-                buf = outs.get(name)
-                if buf is None:
-                    buf = outs[name] = torch.zeros(
-                        (self.n_mesh,) + pad,
-                        dtype=torch_ops.torch_dtype(dtypes[name]),
-                        device=self.device)
-                buf[(rows,) + tuple(slice(0, s) for s in y.shape[1:])] = y
-        for name in live_out:
-            tenv[name] = outs[name] if name in outs else torch.zeros(
-                (self.n_mesh,) + self._out_pads[name],
-                dtype=torch_ops.torch_dtype(dtypes[name]),
-                device=self.device)
-
-    def _eval(self, tenv: dict) -> dict:
-        for entry in self.ir.entries:
-            t0 = time.perf_counter()
-            if isinstance(entry, CommSlot):
-                op = entry.op
-                x = tenv[op.inputs[0].name]
-                tenv[op.outputs[0].name] = self._lowerings[id(op)].apply(x)
-                self._mark("comm", t0)
-            else:
-                self._run_segment(entry, tenv)
-                self._mark("compute", t0)
-        return tenv
-
-    # -- pack / unpack -------------------------------------------------------
+    def _run_segment(self, sr: SegmentRun, tenv) -> None:
+        run_segment(sr, tenv, n_mesh=self.n_mesh, device=self.device,
+                    times=self.times)
 
     def _leaf(self, state, name: str) -> torch.Tensor:
         """Leaf ``name``'s shards packed into a stacked buffer on the
@@ -340,16 +353,68 @@ class LoweredGraph:
         return torch.from_numpy(stacked).to(self.device)
 
     def _fetch(self, tenv) -> dict[str, ShardedTensor]:
-        return {name: unpack_rows(self.graph, self.k, self.shapes,
-                                  self.order, name,
-                                  tenv[name].cpu().numpy())
-                for name in self.fetches}
+        """The fetches to the host (timed as ``fetch``); the caller has
+        waited for the device to produce them."""
+        t0 = time.perf_counter()
+        out = {name: fetch_shards(self.graph, self.k, self.shapes,
+                                  self.order, name, tenv[name])
+               for name in self.fetches}
+        self.times.mark("fetch", t0, self.device)
+        return out
 
     def _check_tf32(self) -> None:
         if self.device.type == "cuda":
             # fp32 products must be full fp32, as in the reference
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+
+
+class LoweredGraph(StackedGraph):
+    """A deduced graph + strategy lowered onto one torch device, reusable
+    over fresh shard values.
+
+    With ``num_microbatches=m > 1`` the graph passed in is the MICRO graph
+    (shapes already scaled; ``Program.compile_micro``) and
+    :meth:`run_microbatches` runs it once per microbatch."""
+
+    def __init__(self, graph: Graph, strategy: int = 0, *, device,
+                 shape_env: dict[str, int] | None = None,
+                 topology: Topology | None = None,
+                 fetches=None,
+                 num_microbatches: int = 1, times: RunTimes | None = None):
+        if num_microbatches < 1:
+            raise ValueError(
+                f"num_microbatches must be >= 1 (got {num_microbatches})")
+        super().__init__(graph, strategy, device=device,
+                         shape_env=shape_env, topology=topology,
+                         fetches=fetches, times=times)
+        self.num_microbatches = num_microbatches
+        self._lowerings = {id(op): self._lowering(op)
+                           for op in graph.comm_ops}
+        self.ir = self._partition()
+        self._segments = self._plan_segments(self.ir.segments,
+                                             self.fetches)
+
+    # -- emission ------------------------------------------------------------
+
+    def _eval(self, tenv: dict) -> dict:
+        for entry in self.ir.entries:
+            t0 = time.perf_counter()
+            if isinstance(entry, CommSlot):
+                op = entry.op
+                x = tenv[op.inputs[0].name]
+                tenv[op.outputs[0].name] = self._lowerings[id(op)].apply(x)
+                self.times.mark("comm", t0, self.device)
+            else:
+                sr = self._segments.get(id(entry))
+                if sr is not None:      # dead code: nothing escapes
+                    self._run_segment(sr, tenv)
+                self.times.mark("compute", t0, self.device)
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.times.mark("compute", t0, self.device)
+        return tenv
 
     def run(self, state: dict[str, ShardedTensor]
             ) -> dict[str, ShardedTensor]:
@@ -360,12 +425,8 @@ class LoweredGraph:
         self._check_tf32()
         t0 = time.perf_counter()
         tenv = {t.name: self._leaf(state, t.name) for t in self.leaves}
-        self._mark("pack", t0)
-        tenv = self._eval(tenv)
-        t0 = time.perf_counter()
-        out = self._fetch(tenv)
-        self._mark("fetch", t0)
-        return out
+        self.times.mark("pack", t0, self.device)
+        return self._fetch(self._eval(tenv))
 
     def run_microbatches(self, states: list[dict[str, ShardedTensor]]
                          ) -> list[dict[str, ShardedTensor]]:
@@ -384,7 +445,7 @@ class LoweredGraph:
         t0 = time.perf_counter()
         shared = {t.name: self._leaf(states[0], t.name)
                   for t in self.leaves if t.name not in self._per_mb}
-        self._mark("pack", t0)
+        self.times.mark("pack", t0, self.device)
         results = []
         for st in states:
             t0 = time.perf_counter()
@@ -392,10 +453,6 @@ class LoweredGraph:
             for t in self.leaves:
                 if t.name in self._per_mb:
                     tenv[t.name] = self._leaf(st, t.name)
-            self._mark("pack", t0)
-            tenv = self._eval(tenv)
-            t0 = time.perf_counter()
-            results.append(self._fetch(tenv))
-            self._mark("fetch", t0)
+            self.times.mark("pack", t0, self.device)
+            results.append(self._fetch(self._eval(tenv)))
         return results
-

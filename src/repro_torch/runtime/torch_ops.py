@@ -106,8 +106,9 @@ def _attn_probs(q, k, attrs):
         qi = torch.arange(sq, device=q.device)
         ki = torch.arange(sk, device=q.device)
         mask = ki[None, :] <= qi[:, None]
-        logits = torch.where(mask[None, None], logits,
-                             logits.new_tensor(-1e30))
+        # a Python scalar, not a tensor made from one: that would be a
+        # host-to-device copy, which waits for the stream on the card
+        logits = torch.where(mask[None, None], logits, -1e30)
     return _softmax_lastdim(logits), kq
 
 

@@ -474,3 +474,107 @@ def test_session_switch_on_the_card_matches_the_simulator(cuda, dst_kind):
             assert got[name].parts.keys() == st.parts.keys()
             for dev, part in st.parts.items():
                 assert (got[name].parts[dev] == part).all(), (key, name, dev)
+
+
+def _llama_pipeline(m):
+    """Reduced Llama blocks under tp2 x pp2 (batch 4, seq 128): the micro
+    train plan, its fetches (the loss and every gradient) and the
+    per-microbatch leaf states, as ``Session`` builds them."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.models.graph_block import block_program
+
+    cfg = get_config("llama_32b").reduced()
+    rng = np.random.default_rng(0)
+    feeds = {k: rng.integers(0, cfg.vocab, (4, 128)).astype(np.int32)
+             for k in ("ids", "labels")}
+    prog = block_program(cfg, batch=4, seq=128, dp=1, tp=2, pp=2)
+    sess = api.Session(prog, 0, executor=api.SimulatorExecutor())
+    sess.load({t.name: np.ones(t.shape, np.float32)
+               if "norm" in t.name.split("/")[-1]
+               else (rng.standard_normal(t.shape) * 0.05).astype(np.float32)
+               for t in prog.graph.parameters()})
+    tplan = prog.compile_train(0, num_microbatches=m)
+    states = [dict(sess.weights) for _ in range(m)]
+    for t in tplan.graph.placeholders():
+        pieces = np.split(feeds[t.name], m, axis=tplan.mb_roles[t.name])
+        for st, piece in zip(states, pieces):
+            st[t.name] = api.scatter(piece, t.annots[0],
+                                     rng=np.random.default_rng(0))
+    fetches = [tplan.loss_name] + [tplan.grad_map[t.name]
+                                   for t in tplan.graph.parameters()]
+    return cfg, tplan, fetches, states
+
+
+def _assert_runs_equal(want, got, what):
+    import numpy as np
+    for j, (a, b) in enumerate(zip(want, got)):
+        for name, st in a.items():
+            for dev, part in st.parts.items():
+                assert np.array_equal(b[name].parts[dev], part), \
+                    (what, j, name, dev)
+
+
+def test_async_matches_torch_executor_on_the_card(cuda, monkeypatch):
+    """Reduced Llama tp2 x pp2, 4 microbatches, 1f1b: the async executor
+    (each virtual stage on its own stream) and its serialized baseline
+    give the loss and every gradient shard bit for bit as
+    ``TorchExecutor``; B1 launches once per attention class per
+    microbatch, each on the stream of the stage that runs it."""
+    from repro_torch import api
+    from repro_torch.core.schedule import build_schedule
+
+    cfg, tplan, fetches, states = _llama_pipeline(4)
+    sched = build_schedule(2, 4, "1f1b")
+    want = api.TorchExecutor().run_schedule(tplan, sched, states, fetches)
+    streams = []
+    launch = fa.flash_attention
+
+    def spy(*args, **kw):
+        streams.append(torch.cuda.current_stream())
+        return launch(*args, **kw)
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    for serialize in (False, True):
+        ex = api.AsyncExecutor(serialize=serialize)
+        lw = ex.lowered(tplan, fetches)
+        streams.clear()
+        before = fa.launches
+        got = ex.run_schedule(tplan, sched, states, fetches)
+        torch.cuda.synchronize()
+        _assert_runs_equal(want, got, f"serialize={serialize}")
+        assert lw.stats.kernel_dispatches == cfg.n_layers
+        assert lw.stats.ref_dispatches == 0
+        assert fa.launches - before == lw.stats.kernel_dispatches * 4
+        # one layer a stage: each stage's stream launches B1 once a
+        # microbatch, in its forward
+        assert len(streams) == 8
+        for s in lw._streams[:2]:
+            assert sum(x == s for x in streams) == 4
+
+
+def test_async_stream_hazard_stress(cuda):
+    """The same pipelined step 20 times, the caching allocator churned
+    between runs on the caller's stream and on a side stream: every run's
+    loss and gradients bitwise the first's.  A tensor freed on its
+    producer's stream while another stream still reads it would show
+    here as a run that differs."""
+    from repro_torch import api
+    from repro_torch.core.schedule import build_schedule
+
+    _, tplan, fetches, states = _llama_pipeline(4)
+    sched = build_schedule(2, 4, "1f1b")
+    ex = api.AsyncExecutor()
+    first = ex.run_schedule(tplan, sched, states, fetches)
+    side = torch.cuda.Stream()
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for i in range(19):
+        junk = [torch.randn((1 << (10 + i % 8),), generator=g, device=cuda)
+                for _ in range(8)]
+        with torch.cuda.stream(side):
+            junk += [torch.full((3 << (8 + i % 5),), float(i), device=cuda)
+                     for _ in range(8)]
+        got = ex.run_schedule(tplan, sched, states, fetches)
+        del junk
+        _assert_runs_equal(first, got, f"run {i + 2}")
