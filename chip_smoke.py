@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``nvcc`` per source, all at once, with ptxas's register and spill report.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and at edge cases: flash attention
-   (head dims 64, 128 and 256), the SSD scan (y and the final state) and
+   (head dims 64, 128 and 256, and MLA's q / k at 192 with v at 128, which
+   must raise for a pair the kernel is not built for), the SSD scan (y and
+   the final state) and
    the RG-LRU scan (bf16 cases also against the plain version on the same
    bf16 inputs, output for output).  At the main shapes it times the
    kernel's wrapper, the kernels alone where the wrapper prepares their
@@ -107,8 +109,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    all streams, kernel time summed over the streams and the host syncs
    that ``torch.cuda.set_sync_debug_mode("warn")`` reports; then B1 at
    this path's shape against its plain version, its bound and SDPA.
-9. the training line, the elastic line, the pipeline line, the kernels
-   line, then the card line, then the result line.
+9. the rest of the model stack, each config at published widths, fp32,
+   random weights from seed 0, batch 4, generating 32 tokens, freed before
+   the next: DeepSeek-V2 (3 of 60 layers: the dense layer 0 and two MoE
+   layers; MLA) and Grok-1 (2 of 64 MoE layers) on 512-token prompts,
+   Qwen2-VL (2 of 80 layers; embedding inputs, a 16 x 16 image grid and
+   text with their M-RoPE ids) on 512, whole Whisper large-v3 (32 encoder
+   and 32 decoder layers over 1500 audio frames) on 384.  Prefill must
+   launch B1 once per decoder self-attention layer (3, 2, 2, 32) and
+   decode none; the teacher-forced decode must agree with prefill (atol
+   2e-3, rtol 1e-3, same argmax), for MoE on a copy under ``moe.exact``
+   with the same weights, since at capacity factor 1.25 a 4-token decode
+   step keeps one assignment an expert; prefill through the kernels must
+   agree with the plain versions on the prompts none of whose tokens is
+   routed differently in any MoE layer, and at most 1% of the tokens may
+   be.  Prefill ms, decode tok/s, peak memory and the device's busy share,
+   and B1 at Grok-1's, Qwen2-VL's and Whisper's prefill shapes against its
+   plain version, its bound and SDPA.
+10. the training line, the elastic line, the pipeline line, the families
+   line, the kernels line, then the card line, then the result line.
 
 Needs a visible CUDA device and the repository's ``src/`` beside it; it
 imports nothing of JAX and nothing of the JAX package.
@@ -201,6 +220,18 @@ PROBE_TRACES = {
 #: ... and phase 5's program through the driver: dp2 x tp2 on devices 0-3,
 #: tp2 on devices 0-1 from step 1 (a shrink), dp2 x tp2 again from step 2
 ELASTIC_TRACE = [(0, (0, 1, 2, 3)), (1, (0, 1)), (2, (0, 1, 2, 3))]
+#: phase 9: the families of the port's last model slice, each at published
+#: widths, fp32, random weights from seed 0, batch 4: (arch, layers or None
+#: for full depth, prompt length).  DeepSeek-V2 keeps its dense layer 0 and
+#: two MoE layers (37.3 GB of fp32 weights), Grok-1 two MoE layers (32.9
+#: GB), Qwen2-VL two layers; Whisper runs whole, its prompt inside the 448
+#: positions of its decoder
+FAMILIES = (("deepseek-v2-236b", 3, 512), ("grok-1-314b", 2, 512),
+            ("qwen2-vl-72b", 2, 512), ("whisper-large-v3", None, 384))
+#: the largest share of prefill tokens whose MoE routing (an expert of the
+#: top-k, or whether capacity keeps it) may differ between the kernels and
+#: the plain versions: they differ by ~1e-6, which flips a near-tie
+ROUTING_FLIP_MAX = 0.01
 
 
 def fail(msg: str):
@@ -296,12 +327,15 @@ def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
                                        else "bytes")
 
 
-def attention_bound_ms(q, k, causal, window) -> tuple[float, str]:
-    """Least time on the card: the visible (q, k) pairs' 4*D flops at the
-    peak rate of the inputs' type against q, k, v, o moved once."""
+def attention_bound_ms(q, k, causal, window, v=None) -> tuple[float, str]:
+    """Least time on the card: the visible (q, k) pairs' 2 * D flops of
+    Q K^T and 2 * Dv of P V (D = Dv unless ``v`` has its own head dim, as
+    MLA's) at the peak rate of the inputs' type, against q, k, v and o
+    moved once."""
     import torch
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    dv = d if v is None else v.shape[-1]
     qi = torch.arange(sq)[:, None]
     ki = torch.arange(sk)[None, :]
     vis = torch.ones(sq, sk, dtype=torch.bool)
@@ -309,8 +343,10 @@ def attention_bound_ms(q, k, causal, window) -> tuple[float, str]:
         vis &= ki <= qi
     if window is not None:
         vis &= ki > qi - window
-    flops = 4.0 * b * h * d * int(vis.sum())
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    flops = 2.0 * b * h * (d + dv) * int(vis.sum())
+    v_numel = k.numel() if v is None else v.numel()
+    nbytes = q.element_size() * (q.numel() + k.numel() + v_numel
+                                 + b * h * sq * dv)
     return bound(flops, nbytes, str(q.dtype).removeprefix("torch."))
 
 
@@ -338,8 +374,9 @@ def rglru_bound_ms(b, s, w, dtype, es):
 
 
 def attention_cases():
-    """(name, dtype, B, H, K, Sq, Sk, D, causal, window, layout); names
-    starting with "main" are timed."""
+    """(name, dtype, B, H, K, Sq, Sk, D, causal, window, layout); D is one
+    head dim, or (D of q and k, Dv of v) for MLA; names starting with
+    "main" are timed."""
     return [
         ("main fp32", "float32", 4, 12, 2, 512, 512, 128, True, None, "bshd"),
         ("main bf16", "bfloat16", 4, 12, 2, 512, 512, 128, True, None,
@@ -373,6 +410,18 @@ def attention_cases():
          "bshd"),
         ("D256 window 128 bf16", "bfloat16", 1, 4, 1, 640, 640, 256, True,
          128, "bshd"),
+        # DeepSeek-V2's MLA prefill: q and k at 192, v at 128, 128 heads;
+        # k and v are column views of one tensor, as the model splits them
+        ("main MLA fp32", "float32", 4, 128, 128, 512, 512, (192, 128), True,
+         None, "bshd"),
+        ("main MLA bf16", "bfloat16", 4, 128, 128, 512, 512, (192, 128),
+         True, None, "bshd"),
+        ("MLA ragged", "float32", 1, 4, 2, 300, 200, (192, 128), True, None,
+         "bshd"),
+        ("MLA non-causal bf16", "bfloat16", 1, 4, 2, 300, 333, (192, 128),
+         False, None, "bshd"),
+        ("fully-masked rows MLA", "bfloat16", 1, 2, 1, 256, 128, (192, 128),
+         True, 16, "bhsd"),
     ]
 
 
@@ -416,14 +465,19 @@ def rglru_cases():
 
 def make_inputs(gen, dtype, b, h, kh, sq, sk, d, layout):
     """q, k, v on the card; ``"bshd"`` gives the transposed views the model
-    hands the kernel, ``"bhsd"`` contiguous tensors."""
+    hands the kernel, ``"bhsd"`` contiguous tensors.  With ``d`` a pair
+    (D, Dv), k and v are the column views of one (.., D + Dv) tensor."""
     import torch
+    d, dv = d if isinstance(d, tuple) else (d, None)
 
-    def one(n, s):
-        shape = (b, s, n, d) if layout == "bshd" else (b, n, s, d)
+    def one(n, s, width):
+        shape = (b, s, n, width) if layout == "bshd" else (b, n, s, width)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         return x.transpose(1, 2) if layout == "bshd" else x
-    return one(h, sq), one(kh, sk), one(kh, sk)
+    if dv is None:
+        return one(h, sq, d), one(kh, sk, d), one(kh, sk, d)
+    kv = one(kh, sk, d + dv)
+    return one(h, sq, d), kv[..., :d], kv[..., d:]
 
 
 def phase_attention(torch, fa, ref, gen):
@@ -432,11 +486,12 @@ def phase_attention(torch, fa, ref, gen):
          layout) in attention_cases():
         dtype = getattr(torch, dt)
         q, k, v = make_inputs(gen, dtype, b, h, kh, sq, sk, d, layout)
+        d, dv = d if isinstance(d, tuple) else (d, d)
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                        causal=causal, window=window)
         torch.cuda.synchronize()
-        if out.shape != (b, h, sq, d) or out.dtype != dtype:
+        if out.shape != (b, h, sq, dv) or out.dtype != dtype:
             fail(f"flash {name}: output {tuple(out.shape)} {out.dtype}")
         if not bool(torch.isfinite(out).all()):
             fail(f"flash {name}: non-finite output")
@@ -448,7 +503,8 @@ def phase_attention(torch, fa, ref, gen):
             err = max(err, mean_err)
         ok = err <= TOL[dt]
         print(f"  flash {name:20s} {dt:8s} B={b} H={h} K={kh} Sq={sq} "
-              f"Sk={sk} D={d} causal={causal} window={window} {layout}: "
+              f"Sk={sk} D={d}{'' if dv == d else f'/{dv}'} causal={causal} "
+              f"window={window} {layout}: "
               f"max|err| {err:.3e} (tol {TOL[dt]:.0e}) "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -465,7 +521,7 @@ def phase_attention(torch, fa, ref, gen):
             # same function
             lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                           enable_gqa=True))
-            bnd, by = attention_bound_ms(q, k, causal, window)
+            bnd, by = attention_bound_ms(q, k, causal, window, v)
             timing[(d, dt)] = dict(ms=ms, plain_ms=plain_ms,
                                    library_ms=lib_ms, bound_ms=bnd,
                                    bound_by=by, sdpa_ratio=ms / lib_ms,
@@ -475,6 +531,14 @@ def phase_attention(torch, fa, ref, gen):
                   f"sdpa {lib_ms:.4f} ms (kernel / sdpa {ms / lib_ms:.2f}), "
                   f"bound {bnd:.4f} ms ({by}); kernel at {bnd / ms:.1%} of "
                   f"the bound")
+    # a head-dim pair the kernel is not built for raises on the card
+    q = torch.zeros((1, 2, 128, 192), device="cuda")
+    try:
+        fa.flash_attention(q, q, q)
+    except ValueError as exc:
+        print(f"  flash q/k/v at 192/192: raises ({exc})")
+    else:
+        fail("flash: a call at head dims 192/192 did not raise")
     return worst, timing
 
 
@@ -623,11 +687,14 @@ def phase_rglru(torch, rk, ref, gen):
 
 
 def expected_prefill_launches(cfg) -> dict[str, int]:
-    """One launch per layer that holds the kernel."""
+    """One launch per layer that holds the kernel: every self-attention
+    of the decoder stack (at prompt lengths that are multiples of 128, as
+    the JAX gate asks; Whisper's encoder over 1500 frames and its
+    cross-attention take the plain path)."""
     from repro_torch.models.model import griffin_pattern, layer_groups
     want = {"flash": 0, "ssd": 0, "rglru": 0}
     for kind, count in layer_groups(cfg):
-        if kind == "dense":
+        if kind in ("dense", "moe", "dec"):
             want["flash"] += count
         elif kind == "mamba":
             want["ssd"] += count
@@ -670,7 +737,7 @@ def phase_serve(torch, policy, arch):
     build_prefill_step(cfg)(params, {"tokens": prompts})
     for mod in serve.KERNELS.values():
         mod.launches = 0
-    res = serve.generate(params, cfg, prompts, GEN)
+    res = serve.generate(params, cfg, {"tokens": prompts}, GEN)
     launches = serve.launch_counts()
 
     print(f"  prefill {BATCH}x{PROMPT}: {res['prefill_ms']:.2f} ms; cache "
@@ -714,35 +781,44 @@ def phase_serve(torch, policy, arch):
     if not same:
         fail(f"{arch}: prefill through the kernels disagrees with the "
              f"plain path")
-    where_the_time_goes(torch, cfg, params, prompts)
+    where_the_time_goes(torch, cfg, params, {"tokens": prompts})
     del params, res, plain
     torch.cuda.empty_cache()
     return launches
 
 
-def where_the_time_goes(torch, cfg, params, prompts, steps=8):
+def where_the_time_goes(torch, cfg, params, prompt, steps=8):
     """Host time of one prefill and of ``steps`` decode steps, their summed
     device kernel time under ``torch.profiler`` (so the device's busy
-    share), and the heaviest kernels."""
+    share), and the heaviest kernels.  Returns {"prefill", "decode step":
+    {"host_ms", "device_ms", "busy"}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models.model import init_decode_state
+    from repro_torch import serve
+    from repro_torch.models.model import init_decode_state, run_encoder
     from repro_torch.train.steps import build_decode_step, build_prefill_step
 
     prefill, step = build_prefill_step(cfg), build_decode_step(cfg)
-    state = init_decode_state(cfg, BATCH, PROMPT + GEN, device="cuda")
-    tok = prompts[:, :1]
+    b, p = prompt.get("tokens", prompt.get("embeds")).shape[:2]
+    enc_out = None
+    if cfg.encdec:
+        with torch.inference_mode():
+            enc_out = run_encoder(params, prompt, cfg)
+    state = init_decode_state(cfg, b, p + GEN, device="cuda",
+                              enc_out=enc_out)
+    first = serve.decode_batch(cfg, prompt, 0)
 
     def run_prefill():
-        prefill(params, {"tokens": prompts})
+        prefill(params, prompt)
 
     def run_decode():
         for _ in range(steps):
-            step(params, state, {"tokens": tok})
+            step(params, state, first)
 
     print(f"== where the time goes, {cfg.name} (host clock; device time "
           f"from torch.profiler)")
+    out = {}
     for name, fn, n in (("prefill", run_prefill, 1),
                         ("decode step", run_decode, steps)):
         fn()
@@ -766,6 +842,8 @@ def where_the_time_goes(torch, cfg, params, prompts, steps=8):
               f" kernel launches")
         for ms, key in top:
             print(f"    {ms:8.3f} ms  {key[:90]}")
+        out[name] = {"host_ms": wall, "device_ms": busy, "busy": busy / wall}
+    return out
 
 
 def block_weights(prog, rng):
@@ -1124,8 +1202,8 @@ def train_kernels_vs_plain(torch, policy, cfg, kernels, per_step):
             opt = init_opt_state(params)
             corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab,
                                                   max_len=TRAIN_SEQ))
-            batches = [make_batch(corpus, TRAIN_BATCH, TRAIN_SEQ, "cuda")
-                       for _ in range(2)]
+            batches = [make_batch(corpus, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                  None, "cuda") for _ in range(2)]
             before = {k: m.launches for k, m in kernels.items()}
             loss1, grads = accumulate_grads(params, batches[0], cfg,
                                             TRAIN_MICRO)
@@ -2104,6 +2182,161 @@ def phase_async(torch, fa, ref):
                     "overlap": overlap, "runs": runs, "phase_s": t_phase}
 
 
+def phase_family(torch, policy, fa, ref, arch, layers, plen):
+    """Serve one config of phase 9 at published widths (depth cut to
+    ``layers``), fp32, random weights from seed 0, batch 4, ``plen``
+    prompt positions and GEN generated tokens; see the module docstring."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.train.steps import build_prefill_step
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    print(f"== phase 9: serve {arch}, published widths, {cfg.n_layers} of "
+          f"{full.n_layers} layers; {card_line()}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"  {cfg.name}: d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+          f"params fp32 ({weights / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.1f} s, init peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prompt = serve.make_prompt(cfg, BATCH, plen, np.random.default_rng(0),
+                               "cuda")
+    policy.set_policy("auto")
+    prefill = build_prefill_step(cfg)
+    prefill(params, prompt)  # warm-up: cuBLAS's first-call setup
+    torch.cuda.reset_peak_memory_stats()
+    for mod in serve.KERNELS.values():
+        mod.launches = 0
+    res = serve.generate(params, cfg, prompt, GEN)
+    launches = serve.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  prefill {BATCH}x{plen}: {res['prefill_ms']:.2f} ms"
+          + (f"; encoder for decode {res['encode_ms']:.2f} ms"
+             if cfg.encdec else "")
+          + f"; cache fill ({plen} decode steps) {res['fill_ms']:.1f} ms; "
+          f"decode {GEN - 1} steps {res['decode_ms']:.1f} ms = "
+          f"{res['decode_tok_s']:.1f} tok/s; peak memory {peak:.2f} GiB")
+    want = expected_prefill_launches(cfg)
+    print(f"  kernel launches: prefill {res['prefill_launches']}, whole run "
+          f"{launches} (expected {want} in prefill, none in decode)")
+    if res["prefill_launches"] != want or launches != want:
+        fail(f"{arch}: expected {want} launches in prefill and none in "
+             f"decode; prefill {res['prefill_launches']}, whole run "
+             f"{launches}")
+    for key in ("prefill_logits", "teacher_logits"):
+        if res[key].shape != (BATCH, cfg.vocab) or not bool(
+                torch.isfinite(res[key]).all()):
+            fail(f"{arch} {key}: shape {tuple(res[key].shape)} or "
+                 f"non-finite")
+    if tuple(res["tokens"].shape) != (BATCH, GEN):
+        fail(f"{arch}: tokens shape {tuple(res['tokens'].shape)}")
+    print("  sample (token ids):", res["tokens"][0, :16].tolist())
+
+    # decode vs prefill; with MoE on a copy under moe.exact (no drops) and
+    # the same weights: at capacity_factor 1.25 a 4-token decode step has
+    # a capacity of 1 and drops what prefill keeps
+    checked, total = res, dict(launches)
+    if cfg.moe:
+        exact = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, exact=True))
+        checked = serve.generate(params, exact, prompt, GEN)
+        total = serve.launch_counts()
+        if checked["launches"] != want:
+            fail(f"{arch} (moe.exact): launches {checked['launches']}, "
+                 f"expected {want}")
+    print(f"  prefill vs teacher-forced decode logits"
+          f"{' (moe.exact copy)' if cfg.moe else ''}: max |diff| "
+          f"{checked['max_abs_diff']:.3e} (atol 2e-3, rtol 1e-3, same "
+          f"argmax): {'ok' if checked['agree'] else 'FAIL'}")
+    if not checked["agree"]:
+        fail(f"{arch}: prefill and teacher-forced decode logits disagree")
+
+    # prefill through the kernels vs the plain versions on the card, each
+    # MoE layer's routing recorded; these launches are not counted
+    routes = {}
+    moe.routing_log = []
+    try:
+        kern = prefill(params, prompt)
+        routes["kernel"], moe.routing_log = moe.routing_log, []
+        policy.set_policy("ref")
+        plain = prefill(params, prompt)
+        routes["plain"] = moe.routing_log
+    finally:
+        policy.set_policy("auto")
+        moe.routing_log = None
+    tokens = BATCH * plen
+    flipped = torch.zeros(tokens, dtype=torch.bool, device="cuda")
+    for (ek, kk), (ep, kp) in zip(routes["kernel"], routes["plain"]):
+        flipped |= (ek != ep).any(-1) | (kk != kp).any(-1)
+    n_flip = int(flipped.sum())
+    clean = ~flipped.reshape(BATCH, plen).any(1)
+    diff = (plain - kern)[clean].abs().max().item() if clean.any() else None
+    same = bool(clean.any()) and bool(torch.allclose(
+        plain[clean], kern[clean], atol=2e-3, rtol=1e-3)) and bool(
+        (plain[clean].argmax(-1) == kern[clean].argmax(-1)).all())
+    print(f"  prefill, kernels vs plain versions: {len(routes['kernel'])} "
+          f"MoE layers routed, {n_flip} of {tokens} tokens routed "
+          f"differently (at most {ROUTING_FLIP_MAX:.0%}); last-position "
+          f"logits of the {int(clean.sum())} of {BATCH} prompts with no "
+          f"such token: max |diff| {diff} (atol 2e-3, rtol 1e-3, same "
+          f"argmax): {'ok' if same else 'FAIL'}")
+    if n_flip > ROUTING_FLIP_MAX * tokens:
+        fail(f"{arch}: {n_flip} tokens routed differently through the "
+             f"kernels")
+    if not same:
+        fail(f"{arch}: prefill through the kernels disagrees with the plain "
+             f"path")
+    busy = where_the_time_goes(torch, cfg, params, prompt)
+    out = {"arch": arch, "layers": cfg.n_layers, "params_b": n_params / 1e9,
+           "weights_gb": weights / 1e9, "prompt": plen, "generated": GEN,
+           "prefill_ms": res["prefill_ms"], "encode_ms": res["encode_ms"],
+           "fill_ms": res["fill_ms"], "decode_ms": res["decode_ms"],
+           "decode_tok_s": res["decode_tok_s"], "peak_gib": peak,
+           "busy": busy, "launches": total,
+           "b1_per_prefill": want["flash"],
+           "decode_vs_prefill_max_diff": checked["max_abs_diff"],
+           "kernel_vs_plain_max_diff": diff, "routing_flips": n_flip,
+           "tokens": tokens}
+    del params, res, checked, kern, plain, routes
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(torch, policy, fa, ref):
+    """Phase 9: each config of :data:`FAMILIES` in turn, then B1 against
+    its plain version at each one's prefill shape (the MLA shape is phase
+    3's)."""
+    t_phase = time.perf_counter()
+    runs = {arch: phase_family(torch, policy, fa, ref, arch, layers, plen)
+            for arch, layers, plen in FAMILIES}
+    b1 = {arch: b1_at_shape(torch, fa, ref, shape, BATCH, h, kh, plen, hd)
+          for arch, shape, h, kh, plen, hd in (
+              ("grok-1-314b", "B4 H48 K8 S512 D128 causal fp32 (Grok-1 "
+               "prefill)", 48, 8, 512, 128),
+              ("qwen2-vl-72b", "B4 H64 K8 S512 D128 causal fp32 (Qwen2-VL "
+               "prefill)", 64, 8, 512, 128),
+              ("whisper-large-v3", "B4 H20 K20 S384 D64 causal fp32 "
+               "(Whisper decoder prefill)", 20, 20, 384, 64))}
+    t_phase = time.perf_counter() - t_phase
+    print(f"  phase 9: {t_phase:.1f} s")
+    return runs, b1, t_phase
+
+
 def main() -> int:
     try:
         import torch
@@ -2171,6 +2404,10 @@ def main() -> int:
     del ir_run
     pp_b1, pipeline = phase_async(torch, fa, ref)
     total["flash"] += pp_b1["launches"]
+    fams, fam_b1, fam_s = phase_families(torch, policy, fa, ref)
+    for run in fams.values():
+        for k, n in run["launches"].items():
+            total[k] += n
 
     def training(kind):
         """Each training config's launches a step and plain recompute."""
@@ -2205,7 +2442,15 @@ def main() -> int:
         {"shape": "B4 H12 K2 S512 D128 causal bf16 (tensor cores)",
          "launches": 0, **fa_t[(128, "bfloat16")]},
         {"shape": "B4 H16 K1 S512 D256 causal window 2048 bf16 (tensor "
-                  "cores)", "launches": 0, **fa_t[(256, "bfloat16")]}]
+                  "cores)", "launches": 0, **fa_t[(256, "bfloat16")]},
+        {"shape": "B4 H128 K128 S512 D192/128 causal fp32 (DeepSeek-V2 MLA "
+                  "prefill)",
+         "launches": fams["deepseek-v2-236b"]["launches"]["flash"],
+         **fa_t[(192, "float32")]},
+        {"shape": "B4 H128 K128 S512 D192/128 causal bf16 (tensor cores)",
+         "launches": 0, **fa_t[(192, "bfloat16")]},
+        *({**fam_b1[arch], "launches": fams[arch]["launches"]["flash"]}
+          for arch in fam_b1)]
     kernels = [
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:114", total["flash"],
@@ -2229,6 +2474,7 @@ def main() -> int:
         for arch, t in train.items()}))
     print("elastic: " + json.dumps(elastic))
     print("pipeline: " + json.dumps(pipeline))
+    print("families: " + json.dumps({"runs": fams, "phase_s": fam_s}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

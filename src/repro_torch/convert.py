@@ -20,7 +20,7 @@ import torch
 
 from .device import resolve_device
 from .models.config import ModelConfig
-from .models.model import check_ported, griffin_pattern, layer_groups
+from .models.model import dense_d_ff, griffin_pattern, layer_groups
 from .tree import paths
 
 #: leaves the JAX package keeps in fp32 whatever the model dtype
@@ -31,23 +31,58 @@ def path_str(path) -> str:
     return "/".join(map(str, path))
 
 
-def _attention_shapes(cfg: ModelConfig, L: int) -> dict:
+def _norm_shapes(cfg: ModelConfig, *lead) -> dict:
+    """RMSNorm's ``w``; LayerNorm (family ``audio``) adds ``b``."""
+    out = {("w",): (*lead, cfg.d_model)}
+    if cfg.family == "audio":
+        out[("b",)] = (*lead, cfg.d_model)
+    return out
+
+
+def _attention_shapes(cfg: ModelConfig, L: int, cross: bool = False) -> dict:
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out = {("wq",): (L, d, H * hd), ("wk",): (L, d, K * hd),
            ("wv",): (L, d, K * hd), ("wo",): (L, H * hd, d)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         out.update({("bq",): (L, H * hd), ("bk",): (L, K * hd),
                     ("bv",): (L, K * hd)})
     return out
 
 
-def _mlp_shapes(cfg: ModelConfig, L: int) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
+def _mla_shapes(cfg: ModelConfig, L: int) -> dict:
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    out = ({("wq_a",): (L, d, m.q_lora), ("wq_b",): (L, m.q_lora, H * qd)}
+           if m.q_lora else {("wq",): (L, d, H * qd)})
+    out.update({("wkv_a",): (L, d, m.kv_lora + m.qk_rope_dim),
+                ("wkv_b",): (L, m.kv_lora, H * (m.qk_nope_dim + m.v_head_dim)),
+                ("wo",): (L, H * m.v_head_dim, d)})
+    return out
+
+
+def _mlp_shapes(cfg: ModelConfig, *lead, ff: int | None = None,
+                kind: str | None = None) -> dict:
+    """An MLP's leaves under the leading dims ``lead`` (layers, and
+    experts for an MoE), of width ``ff`` (``d_ff``) and ``kind``
+    (``cfg.mlp``)."""
+    d = cfg.d_model
+    ff = cfg.d_ff if ff is None else ff
     out = {}
-    if cfg.mlp in ("swiglu", "geglu"):
-        out[("gate",)] = (L, d, ff)
-    out[("up",)] = (L, d, ff)
-    out[("down",)] = (L, ff, d)
+    if (kind or cfg.mlp) in ("swiglu", "geglu"):
+        out[("gate",)] = (*lead, d, ff)
+    out[("up",)] = (*lead, d, ff)
+    out[("down",)] = (*lead, ff, d)
+    return out
+
+
+def _moe_shapes(cfg: ModelConfig, L: int) -> dict:
+    m = cfg.moe
+    out = {("router",): (L, cfg.d_model, m.n_experts)}
+    out.update(_under(("experts",), _mlp_shapes(cfg, L, m.n_experts,
+                                                ff=m.d_expert)))
+    if m.n_shared:
+        out.update(_under(("shared",), _mlp_shapes(cfg, L, m.n_shared,
+                                                   ff=m.d_expert)))
     return out
 
 
@@ -74,31 +109,52 @@ def _under(prefix, shapes: dict) -> dict:
     return {prefix + k: v for k, v in shapes.items()}
 
 
+def _block_shapes(cfg: ModelConfig, kind: str, L: int) -> dict:
+    """The leaves of ``L`` stacked blocks of ``kind``."""
+    out = _under(("n1",), _norm_shapes(cfg, L))
+    if kind in ("dense", "moe"):
+        out.update(_under(("attn",), _mla_shapes(cfg, L) if cfg.mla
+                          else _attention_shapes(cfg, L)))
+        out.update(_under(("n2",), _norm_shapes(cfg, L)))
+        out.update(_under(("moe",), _moe_shapes(cfg, L)) if kind == "moe"
+                   else _under(("mlp",), _mlp_shapes(cfg, L,
+                                                     ff=dense_d_ff(cfg))))
+    elif kind == "mamba":
+        out.update(_under(("mixer",), _mamba_shapes(cfg, L)))
+    elif kind in ("enc", "dec"):
+        out.update(_under(("attn",), _attention_shapes(cfg, L)))
+        if kind == "dec":
+            out.update(_under(("nx",), _norm_shapes(cfg, L)))
+            out.update(_under(("xattn",), _attention_shapes(cfg, L,
+                                                            cross=True)))
+        out.update(_under(("n2",), _norm_shapes(cfg, L)))
+        out.update(_under(("mlp",), _mlp_shapes(cfg, L, kind="gelu")))
+    else:  # griffin, griffin_tail
+        out = {}
+        for j, sub in enumerate(griffin_pattern(cfg, kind)):
+            mixer = (_recurrent_shapes(cfg, L) if sub == "rec"
+                     else _attention_shapes(cfg, L))
+            out.update(_under(("subs", j, "n1"), _norm_shapes(cfg, L)))
+            out.update(_under(("subs", j, "mixer"), mixer))
+            out.update(_under(("subs", j, "n2"), _norm_shapes(cfg, L)))
+            out.update(_under(("subs", j, "mlp"), _mlp_shapes(cfg, L)))
+    return out
+
+
 def param_shapes(cfg: ModelConfig) -> dict[tuple, tuple]:
     """``{path: shape}`` of every leaf of the port's parameters."""
-    check_ported(cfg)
     d = cfg.d_model
-    out = {("embed",): (cfg.vocab, d)}
+    out = {}
+    if cfg.input_kind == "tokens" or cfg.encdec:
+        out[("embed",)] = (cfg.vocab, d)
     for gi, (kind, L) in enumerate(layer_groups(cfg)):
-        g = ("groups", f"g{gi}_{kind}")
-        if kind == "dense":
-            out[g + ("n1", "w")] = (L, d)
-            out.update(_under(g + ("attn",), _attention_shapes(cfg, L)))
-            out[g + ("n2", "w")] = (L, d)
-            out.update(_under(g + ("mlp",), _mlp_shapes(cfg, L)))
-        elif kind == "mamba":
-            out[g + ("n1", "w")] = (L, d)
-            out.update(_under(g + ("mixer",), _mamba_shapes(cfg, L)))
-        else:  # griffin, griffin_tail
-            for j, sub in enumerate(griffin_pattern(cfg, kind)):
-                sg = g + ("subs", j)
-                out[sg + ("n1", "w")] = (L, d)
-                mixer = (_recurrent_shapes(cfg, L) if sub == "rec"
-                         else _attention_shapes(cfg, L))
-                out.update(_under(sg + ("mixer",), mixer))
-                out[sg + ("n2", "w")] = (L, d)
-                out.update(_under(sg + ("mlp",), _mlp_shapes(cfg, L)))
-    out[("final_norm", "w")] = (d,)
+        out.update(_under(("groups", f"g{gi}_{kind}"),
+                          _block_shapes(cfg, kind, L)))
+    if cfg.encdec:
+        out.update(_under(("encoder",), _block_shapes(
+            cfg, "enc", cfg.encdec.n_enc_layers)))
+        out.update(_under(("enc_norm",), _norm_shapes(cfg)))
+    out.update(_under(("final_norm",), _norm_shapes(cfg)))
     if not cfg.tie_embeddings:
         out[("lm_head",)] = (d, cfg.vocab)
     return out

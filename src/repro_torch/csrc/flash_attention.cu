@@ -5,8 +5,11 @@
 //   s = (q . k) * scale, masked logits set to -1e30 (causal k <= q with no
 //   offset, window k > q - window), an online softmax with the running max,
 //   normalizer and accumulator in fp32, and l == 0 -> 1 at the end.
-// Inputs are fp32 or bf16, with head dim D in {64, 128, 256}; the output has
-// the input's type.  Query head h reads KV head h / (H / KH) straight from
+// Inputs are fp32 or bf16, with head dim D in {64, 128, 256} for q, k and v,
+// or DeepSeek-V2's MLA pair: q and k at D = 192, v at Dv = 128 (the scale
+// stays 1/sqrt(D)); the output has v's head dim and the input's type.  The
+// Pallas kernel sizes v and the output by q's D, so it cannot run MLA; the
+// JAX model's plain path, whose output follows v, is what this computes.  Query head h reads KV head h / (H / KH) straight from
 // the un-repeated K/V, and any row strides are taken (unit last dim, rows
 // 16-byte aligned; the wrapper checks).  One block owns (batch b, query head
 // h, a tile of query rows); the Pallas kernel's sequential k-block grid axis
@@ -37,10 +40,11 @@
 // operand of P V directly; S never goes to shared memory.  Rounding P
 // departs from the Pallas kernel, which keeps P in fp32; at the main shapes
 // the worst error stays under half the 2e-2 tolerance, so P V is one bf16
-// product.  At D <= 128 the warp keeps its Q fragments in registers (64
-// keys a tile); at D = 256 the O accumulator alone is 128 fp32 registers a
-// thread, so Q stays in shared memory and is re-read with ldmatrix per
-// k-step, with 32-key tiles.
+// product.  At D <= 128, and at MLA's 192 / 128 (48 registers of Q beside
+// 64 of O), the warp keeps its Q fragments in registers (64 keys a tile); at
+// D = 256 the O accumulator alone is 128 fp32 registers a thread, so Q stays
+// in shared memory and is re-read with ldmatrix per k-step, with 32-key
+// tiles.
 //
 // fp32: exact, on the CUDA cores (no TF32).  A 16 x TY thread grid; thread
 // (ty, tx) owns rows ty + TY i of both S and O (4 of them), keys tx + 16 j of
@@ -52,7 +56,7 @@
 // P V.  K and V have their own buffers: V of tile t loads (cp.async) while
 // S is computed, K of tile t+1 while P V is.  Shared memory is sized for
 // two blocks an SM: 64 x 64 tiles at D = 128 (112 KB), 32 x 32 at D = 256
-// (100 KB, Q, K, V and P).
+// (100 KB, Q, K, V and P) and at 192 / 128 (68 KB).
 //
 // Key tiles that a whole query tile cannot see (above the causal diagonal,
 // before the window) are skipped.  That is exact for every row with at
@@ -178,24 +182,27 @@ __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
   }
 }
 
-template <int D, int BK>
+template <int D, int DV, int BK>
 constexpr size_t bf16_smem_bytes() {
-  return sizeof(bf16) * (size_t(BF_BQ) * D + size_t(4) * BK * D);
+  return sizeof(bf16) *
+         (size_t(BF_BQ) * D + size_t(2) * BK * D + size_t(2) * BK * DV);
 }
 
-template <int D, int BK>
+// D: the head dim of q and k; DV: that of v and the output.
+template <int D, int DV, int BK>
 __global__ void __launch_bounds__(BF_THREADS)
     flash_bf16_kernel(const Params p) {
-  static_assert(D % 64 == 0 && BK % 16 == 0, "tile shape");
+  static_assert(D % 64 == 0 && DV % 64 == 0 && BK % 16 == 0, "tile shape");
   constexpr int NT = BK / 8;   // 8-key n-tiles of S
-  constexpr int DT = D / 8;    // 8-column n-tiles of O
+  constexpr int DT = DV / 8;   // 8-column n-tiles of O
   constexpr int KS = D / 16;   // k-steps of Q K^T
-  constexpr bool QREG = D <= 128;
+  // Q's fragments (KS x 4 registers) beside O's (DT x 4) and S's (NT x 4)
+  constexpr bool QREG = D + DV <= 320;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x D
   bf16* Ks = Qs + BF_BQ * D;                     // 2 x BK x D
-  bf16* Vs = Ks + 2 * BK * D;                    // 2 x BK x D
+  bf16* Vs = Ks + 2 * BK * D;                    // 2 x BK x DV
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, c4 = lane % 4;
@@ -215,7 +222,7 @@ __global__ void __launch_bounds__(BF_THREADS)
   {
     const int k0 = kr.t0 * BK, kcols = min(BK, p.Sk - k0);
     load_tile_bf16<D, BK>(Ks, kp, p.k_ss, k0, kcols);
-    load_tile_bf16<D, BK>(Vs, vp, p.v_ss, k0, kcols);
+    load_tile_bf16<DV, BK>(Vs, vp, p.v_ss, k0, kcols);
   }
   cp_async_commit();
 
@@ -238,7 +245,7 @@ __global__ void __launch_bounds__(BF_THREADS)
       const int k1 = (kr.t0 + t + 1) * BK, kcols = min(BK, p.Sk - k1);
       const int nb = (t + 1) & 1;
       load_tile_bf16<D, BK>(Ks + nb * BK * D, kp, p.k_ss, k1, kcols);
-      load_tile_bf16<D, BK>(Vs + nb * BK * D, vp, p.v_ss, k1, kcols);
+      load_tile_bf16<DV, BK>(Vs + nb * BK * DV, vp, p.v_ss, k1, kcols);
     }
     cp_async_commit();
     if constexpr (QREG) {
@@ -250,7 +257,7 @@ __global__ void __launch_bounds__(BF_THREADS)
       }
     }
     const bf16* Kb = Ks + (t & 1) * BK * D;
-    const bf16* Vb = Vs + (t & 1) * BK * D;
+    const bf16* Vb = Vs + (t & 1) * BK * DV;
     const int k0 = (kr.t0 + t) * BK;
 
     float s[NT][4];
@@ -328,8 +335,8 @@ __global__ void __launch_bounds__(BF_THREADS)
       for (int j = 0; j < DT; j += 2) {
         uint32_t vb[4];
         hopper::ldmatrix_x4_trans(
-            vb, Vb + swz<D>(16 * kk + lane % 8 + 8 * ((lane / 8) % 2),
-                            j + lane / 16));
+            vb, Vb + swz<DV>(16 * kk + lane % 8 + 8 * ((lane / 8) % 2),
+                             j + lane / 16));
         hopper::mma_bf16(o[j], pa, vb[0], vb[1]);
         hopper::mma_bf16(o[j + 1], pa, vb[2], vb[3]);
       }
@@ -384,32 +391,37 @@ struct F32Tiles<128> {
   static constexpr int BQ = 64, BK = 64, TY = 16;
 };
 template <>
+struct F32Tiles<192> {  // MLA: q and k at 192, v at 128
+  static constexpr int BQ = 32, BK = 32, TY = 8;
+};
+template <>
 struct F32Tiles<256> {
   static constexpr int BQ = 32, BK = 32, TY = 8;
 };
 
-template <int D>
+template <int D, int DV>
 constexpr size_t f32_smem_bytes() {
   using C = F32Tiles<D>;
-  return sizeof(float) * (size_t(C::BQ) * D + size_t(2) * C::BK * D +
-                          size_t(C::BQ) * C::BK);
+  return sizeof(float) * (size_t(C::BQ) * D + size_t(C::BK) * D +
+                          size_t(C::BK) * DV + size_t(C::BQ) * C::BK);
 }
 
-template <int D>
+// D: the head dim of q and k; DV: that of v and the output.
+template <int D, int DV>
 __global__ void __launch_bounds__(16 * F32Tiles<D>::TY, 2)
     flash_f32_kernel(const Params p) {
   constexpr int BQ = F32Tiles<D>::BQ, BK = F32Tiles<D>::BK;
   constexpr int TY = F32Tiles<D>::TY, THREADS = 16 * TY;
   constexpr int R = BQ / TY;   // rows a thread owns
   constexpr int CK = BK / 16;  // keys a thread owns in S
-  constexpr int CV = D / 64;   // float4 columns a thread owns in O
-  static_assert(R == 4 && D % 64 == 0, "tile shape");
+  constexpr int CV = DV / 64;  // float4 columns a thread owns in O
+  static_assert(R == 4 && D % 64 == 0 && DV % 64 == 0, "tile shape");
 
   extern __shared__ __align__(128) float smem[];
   float* Qs = smem;          // BQ x D
   float* Ks = Qs + BQ * D;   // BK x D, swizzled
-  float* Vs = Ks + BK * D;   // BK x D
-  float* Ps = Vs + BK * D;   // BQ x BK
+  float* Vs = Ks + BK * D;   // BK x DV
+  float* Ps = Vs + BK * DV;  // BQ x BK
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const BlockIndex bi = block_index(p);
@@ -447,7 +459,7 @@ __global__ void __launch_bounds__(16 * F32Tiles<D>::TY, 2)
     const int k0 = (kr.t0 + t) * BK, kcols = min(BK, p.Sk - k0);
     cp_async_wait<0>();
     __syncthreads();  // K (and Q) landed; the last P V is done with V and P
-    load_tile_f32<D, BK, THREADS, false>(Vs, vp, p.v_ss, k0, kcols);
+    load_tile_f32<DV, BK, THREADS, false>(Vs, vp, p.v_ss, k0, kcols);
     cp_async_commit();
 
     float s[R][CK];
@@ -455,10 +467,10 @@ __global__ void __launch_bounds__(16 * F32Tiles<D>::TY, 2)
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
-    // unrolled only at D = 256 (128 threads, up to 255 registers); at
+    // unrolled only with 128 threads (D >= 192, up to 255 registers); at
     // D <= 128 an unrolled loop spills under the 128 registers that two
     // 256-thread blocks an SM leave a thread
-#pragma unroll(D == 256 ? 4 : 1)
+#pragma unroll(THREADS == 128 ? 4 : 1)
     for (int d4 = 0; d4 < D / 4; ++d4) {
       float4 kb[CK];
 #pragma unroll
@@ -535,7 +547,7 @@ __global__ void __launch_bounds__(16 * F32Tiles<D>::TY, 2)
         float4 vv[CV];
 #pragma unroll
         for (int j = 0; j < CV; ++j)
-          vv[j] = *reinterpret_cast<const float4*>(Vs + (c + kk) * D +
+          vv[j] = *reinterpret_cast<const float4*>(Vs + (c + kk) * DV +
                                                    4 * tx + 64 * j);
 #pragma unroll
         for (int i = 0; i < R; ++i) {
@@ -581,31 +593,33 @@ cudaError_t launch_kernel(K kernel, const Params& p, int bq, int threads,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_f32(const Params& p, cudaStream_t s) {
   using C = F32Tiles<D>;
   static bool ready = false;
-  return launch_kernel(flash_f32_kernel<D>, p, C::BQ, 16 * C::TY,
-                       f32_smem_bytes<D>(), ready, s);
+  return launch_kernel(flash_f32_kernel<D, DV>, p, C::BQ, 16 * C::TY,
+                       f32_smem_bytes<D, DV>(), ready, s);
 }
 
-template <int D, int BK>
+template <int D, int DV, int BK>
 cudaError_t launch_bf16(const Params& p, cudaStream_t s) {
   static bool ready = false;
-  return launch_kernel(flash_bf16_kernel<D, BK>, p, BF_BQ, BF_THREADS,
-                       bf16_smem_bytes<D, BK>(), ready, s);
+  return launch_kernel(flash_bf16_kernel<D, DV, BK>, p, BF_BQ, BF_THREADS,
+                       bf16_smem_bytes<D, DV, BK>(), ready, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns a
-// cudaError_t code; 0 means the launch was accepted.
+// dtype: 0 = float32, 1 = bfloat16.  D is the head dim of q and k, Dv that
+// of v and o: (D, Dv) is (64, 64), (128, 128), (256, 256) or MLA's
+// (192, 128).  Strides are in elements.  Returns a cudaError_t code; 0 means
+// the launch was accepted.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int64_t q_sb,
     int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
-    int64_t o_ss, int B, int H, int KH, int Sq, int Sk, int D, int causal,
-    int window, int dtype, float scale, void* stream) {
+    int64_t o_ss, int B, int H, int KH, int Sq, int Sk, int D, int Dv,
+    int causal, int window, int dtype, float scale, void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || Sq <= 0 || Sk <= 0)
     return int(cudaErrorInvalidValue);
   Params p{q,    k,    v,    o,  q_sb, q_sh,   q_ss,   k_sb, k_sh,
@@ -613,12 +627,21 @@ extern "C" int flash_attention_fwd(
            KH,   Sq,   Sk,   causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64) err = launch_f32<64>(p, s);
-  else if (dtype == 0 && D == 128) err = launch_f32<128>(p, s);
-  else if (dtype == 0 && D == 256) err = launch_f32<256>(p, s);
-  else if (dtype == 1 && D == 64) err = launch_bf16<64, 64>(p, s);
-  else if (dtype == 1 && D == 128) err = launch_bf16<128, 64>(p, s);
-  else if (dtype == 1 && D == 256) err = launch_bf16<256, 32>(p, s);
+  if (dtype == 0 && D == 64 && Dv == 64) err = launch_f32<64, 64>(p, s);
+  else if (dtype == 0 && D == 128 && Dv == 128)
+    err = launch_f32<128, 128>(p, s);
+  else if (dtype == 0 && D == 192 && Dv == 128)
+    err = launch_f32<192, 128>(p, s);
+  else if (dtype == 0 && D == 256 && Dv == 256)
+    err = launch_f32<256, 256>(p, s);
+  else if (dtype == 1 && D == 64 && Dv == 64)
+    err = launch_bf16<64, 64, 64>(p, s);
+  else if (dtype == 1 && D == 128 && Dv == 128)
+    err = launch_bf16<128, 128, 64>(p, s);
+  else if (dtype == 1 && D == 192 && Dv == 128)
+    err = launch_bf16<192, 128, 64>(p, s);
+  else if (dtype == 1 && D == 256 && Dv == 256)
+    err = launch_bf16<256, 256, 32>(p, s);
   return int(err);
 }
 

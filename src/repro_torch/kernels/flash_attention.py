@@ -2,13 +2,15 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``, pallas_call at line 114, body ``_kernel``).  The
-kernel takes q ``(B, H, Sq, D)`` and k, v ``(B, K, Sk, D)`` with
-``H % K == 0``, fp32 or bf16, ``D`` in :data:`HEAD_DIMS`, any ``Sq`` and
+kernel takes q ``(B, H, Sq, D)``, k ``(B, K, Sk, D)`` and v ``(B, K, Sk,
+Dv)`` with ``H % K == 0``, fp32 or bf16, ``(D, Dv)`` in
+:data:`HEAD_DIM_PAIRS` (equal dims, or MLA's 192 for q and k with 128 for
+v; the scale is ``1/sqrt(D)``), any ``Sq`` and
 ``Sk`` (ragged tiles are masked in the kernel) and any strides whose last
 dimension is unit, so the model can hand it transposed views without a
 copy (a tensor whose rows are not 16-byte aligned, which the kernel's
 asynchronous copies need, is made contiguous first).  The output is a new
-contiguous ``(B, H, Sq, D)`` tensor in q's type.  fp32 runs on the CUDA
+contiguous ``(B, H, Sq, Dv)`` tensor in q's type.  fp32 runs on the CUDA
 cores, exactly; bf16 on the tensor cores.
 
 On a CPU tensor the wrapper runs the plain version,
@@ -34,7 +36,8 @@ from .autograd import PlainBackward
 from .ref import flash_attention_ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (64, 128, 256)
+#: (head dim of q and k, head dim of v) pairs the kernel is built for
+HEAD_DIM_PAIRS = ((64, 64), (128, 128), (192, 128), (256, 256))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the count was last set to 0
@@ -49,7 +52,8 @@ def _kernel_fn():
         lib = _build.load(NAME)
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12
-                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -60,16 +64,19 @@ def _kernel_fn():
 def check_inputs(q, k, v, window) -> None:
     """Raise on what the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k, v must be 4-d: (B, H, Sq, D), (B, K, Sk, D)")
+        raise ValueError("q, k, v must be 4-d: (B, H, Sq, D), (B, K, Sk, D), "
+                         "(B, K, Sk, Dv)")
     b, h, sq, d = q.shape
     kb, kh, sk, kd = k.shape
-    if v.shape != k.shape or kb != b or kd != d:
+    dv = v.shape[-1]
+    if v.shape[:3] != k.shape[:3] or kb != b or kd != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if kh < 1 or h % kh:
         raise ValueError(f"query heads {h} not a multiple of kv heads {kh}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if (d, dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (q/k {d}, v {dv}) not in "
+                         f"{HEAD_DIM_PAIRS}")
     if sq < 1 or sk < 1 or -(-sq // 32) * h * b >= 2 ** 31:  # flat grid
         raise ValueError(f"unsupported sizes B={b} H={h} Sq={sq} Sk={sk}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -94,7 +101,7 @@ def _rows_aligned(t):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
-    """Causal / sliding-window GQA attention forward, ``(B, H, Sq, D)``."""
+    """Causal / sliding-window GQA attention forward, ``(B, H, Sq, Dv)``."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     check_inputs(q, k, v, window)
@@ -103,13 +110,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     fn, err_str = _kernel_fn()
     q, k, v = _rows_aligned(q), _rows_aligned(k), _rows_aligned(v)
     b, h, sq, d = q.shape
-    kh, sk = k.shape[1], k.shape[2]
-    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    kh, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *out.stride()[:3], b, h, kh, sq, sk, d, int(causal),
+                *out.stride()[:3], b, h, kh, sq, sk, d, dv, int(causal),
                 -1 if window is None else int(window), DTYPES[q.dtype],
                 1.0 / math.sqrt(d), stream)
     if rc != 0:

@@ -18,8 +18,9 @@ from .ssd_scan import ssd_scan_with_grad
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None):
-    """q: (B, H, Sq, D); k, v: (B, K, Sk, D)."""
-    if select_attention_impl(q.shape, k.shape, q.device) == "cuda":
+    """q: (B, H, Sq, D); k: (B, K, Sk, D); v: (B, K, Sk, Dv)."""
+    if select_attention_impl(q.shape, k.shape, q.device,
+                             v.shape) == "cuda":
         return flash_attention_with_grad(q, k, v, causal=causal,
                                          window=window)
     return flash_attention_ref(q, k, v, causal=causal, window=window)

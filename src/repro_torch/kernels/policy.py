@@ -24,13 +24,13 @@ from __future__ import annotations
 import torch
 
 from . import rglru_scan, ssd_scan
-from .flash_attention import HEAD_DIMS
+from .flash_attention import HEAD_DIM_PAIRS
 
 VALID_POLICIES = ("auto", "cuda", "ref")
 
 _POLICY = "auto"
 
-#: (q_shape, kv_shape, device type) -> "cuda" | "ref"
+#: (q_shape, kv_shape, v_shape, device type) -> "cuda" | "ref"
 _impl_cache: dict[tuple, str] = {}
 
 
@@ -77,31 +77,38 @@ def _select(device, eligible: bool, what: str) -> str:
     return "cuda"
 
 
-def attention_eligible(q_shape, kv_shape) -> bool:
+def attention_eligible(q_shape, kv_shape, v_shape=None) -> bool:
     """Whether the Hopper flash-attention kernel takes these shapes:
-    ``q (B, H, Sq, D)``, ``k/v (B, K, Sk, D)`` with an integral GQA ratio
-    ``H % K == 0``, equal head dims, ``D`` in 64, 128 or 256, and
-    ``Sq, Sk >= 1``.  The kernel masks its ragged tiles, so no multiple of
-    the tile is needed (the JAX kernel needs multiples of 128)."""
-    if len(q_shape) != 4 or len(kv_shape) != 4:
+    ``q (B, H, Sq, D)``, ``k (B, K, Sk, D)`` and ``v (B, K, Sk, Dv)``
+    (``v_shape`` None: v has k's shape) with an integral GQA ratio
+    ``H % K == 0``, ``(D, Dv)`` one of (64, 64), (128, 128), (256, 256) or
+    MLA's (192, 128), and ``Sq, Sk >= 1``.  The kernel masks its ragged
+    tiles, so no multiple of the tile is needed (the JAX kernel needs
+    multiples of 128)."""
+    v_shape = kv_shape if v_shape is None else v_shape
+    if len(q_shape) != 4 or len(kv_shape) != 4 or len(v_shape) != 4:
         return False
     b, h, sq, d = q_shape
     kb, kh, sk, kd = kv_shape
     return (b == kb and kh >= 1 and h % kh == 0 and d == kd
-            and d in HEAD_DIMS and sq >= 1 and sk >= 1)
+            and tuple(v_shape[:3]) == tuple(kv_shape[:3])
+            and (d, v_shape[3]) in HEAD_DIM_PAIRS and sq >= 1 and sk >= 1)
 
 
-def select_attention_impl(q_shape, kv_shape, device) -> str:
+def select_attention_impl(q_shape, kv_shape, device, v_shape=None) -> str:
     """``"cuda"`` or ``"ref"`` for one attention call, memoized per shape
-    pair and device type; raises for a shape the kernel cannot take on a
-    device the policy sends to the kernels."""
+    triple and device type; raises for a shape the kernel cannot take on a
+    device the policy sends to the kernels.  ``v_shape`` None: v has k's
+    shape."""
     dev = torch.device(device).type
-    key = (tuple(q_shape), tuple(kv_shape), dev)
+    v_shape = kv_shape if v_shape is None else v_shape
+    key = (tuple(q_shape), tuple(kv_shape), tuple(v_shape), dev)
     impl = _impl_cache.get(key)
     if impl is None:
         impl = _impl_cache[key] = _select(
-            device, attention_eligible(q_shape, kv_shape),
-            f"flash attention, q {tuple(q_shape)}, kv {tuple(kv_shape)}")
+            device, attention_eligible(q_shape, kv_shape, v_shape),
+            f"flash attention, q {tuple(q_shape)}, k {tuple(kv_shape)}, "
+            f"v {tuple(v_shape)}")
     return impl
 
 

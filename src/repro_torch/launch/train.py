@@ -25,6 +25,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from ..checkpoint.store import restore, save
@@ -32,7 +33,7 @@ from ..configs import get_config
 from ..data.pipeline import CorpusConfig, SyntheticCorpus, pack_batch
 from ..device import resolve_device
 from ..kernels import flash_attention, rglru_scan, ssd_scan
-from ..models.model import check_ported, init_params
+from ..models.model import init_params, token_embeds
 from ..optim.adamw import AdamWConfig, init_opt_state
 from ..train.steps import build_train_step
 from ..tree import named_leaves
@@ -41,12 +42,26 @@ from ..tree import named_leaves
 KERNELS = {"flash": flash_attention, "ssd": ssd_scan, "rglru": rglru_scan}
 
 
-def make_batch(corpus, batch, seq, device):
-    """One packed batch of token inputs (tokens, labels, loss_mask,
-    positions) on ``device``, as the reference packs it."""
+def make_batch(corpus, cfg, batch, seq, rng, device):
+    """One packed batch (tokens, labels, loss_mask, positions) on
+    ``device``, as the reference's ``make_batch`` builds it: for embedding
+    inputs the tokens become ``embeds`` = one_hot(token % d_model) * 0.02
+    and ``positions3`` the positions on all three M-RoPE streams; for an
+    encoder-decoder ``audio_embeds`` (batch, frames, d_model) are drawn
+    from the numpy ``rng``, N(0, 0.02^2)."""
     seqs = corpus.sample_sequences(max(batch, 4))
-    return {k: torch.from_numpy(v).to(device)
-            for k, v in pack_batch(seqs, batch, seq).items()}
+    out = {k: torch.from_numpy(v).to(device)
+           for k, v in pack_batch(seqs, batch, seq).items()}
+    if cfg.input_kind == "embeds":
+        tok = out.pop("tokens")
+        out["embeds"] = token_embeds(tok, cfg.d_model)
+        out["positions3"] = out["positions"][None].expand(
+            (3,) + tuple(out["positions"].shape))
+    elif cfg.input_kind == "audio":
+        out["audio_embeds"] = torch.from_numpy(
+            rng.normal(size=(batch, cfg.encdec.n_frames, cfg.d_model))
+            * 0.02).float().to(device)
+    return out
 
 
 def strategy_report(params, n_devices: int = 1, num_microbatches: int = 1,
@@ -167,7 +182,6 @@ def main(argv=None) -> dict:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    check_ported(cfg)
     print(f"arch={cfg.name} ({cfg.family}) layers={cfg.n_layers} "
           f"d={cfg.d_model} params~{cfg.param_count() / 1e6:.1f}M "
           f"device={device}")
@@ -200,11 +214,12 @@ def main(argv=None) -> dict:
     out = {"arch": cfg.name, "layers": cfg.n_layers, "device": str(device),
            "losses": [], "grad_norms": [], "lrs": [], "step_ms": [],
            "launches": []}
+    rng = np.random.default_rng(0)
     sync()
     t0 = time.time()
     for step in range(start, start + args.steps):
         before = {k: mod.launches for k, mod in KERNELS.items()}
-        batch = make_batch(corpus, args.batch, args.seq, device)
+        batch = make_batch(corpus, cfg, args.batch, args.seq, rng, device)
         t_step = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         sync()

@@ -9,8 +9,11 @@ the JAX package so that its parameters convert leaf for leaf
 without a mesh; the port has no mesh and drops them.
 
 Attention runs through :mod:`repro_torch.kernels.ops`, which dispatches
-between the Hopper flash-attention kernel and its plain version.
-M-RoPE and MLA come with the slices that port their model families.
+between the Hopper flash-attention kernel and its plain version.  MLA's
+prefill reaches the kernel with q and k at head dim 192 and v at 128, a
+call the JAX package's Pallas kernel cannot take (it sizes v and the
+output by q's head dim); its plain path, which the port follows, gives
+the output v's head dim.
 """
 
 from __future__ import annotations
@@ -68,16 +71,33 @@ def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) integer."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)       # (hd/2,)
-    ang = positions[..., None].float() * freqs              # (B,S,hd/2)
+def _rotate(x, ang):
+    """Rotate the two halves of x (B, S, H, hd) by ang (B, S, hd/2)."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) integer."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)       # (hd/2,)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: positions3 (3, B, S) = (t, h, w) ids;
+    the head dim's frequency bands are cut into ``sections``, and the bands
+    of section i turn by position stream i [arXiv:2409.12191]."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
+    sec = torch.cat([torch.full((n,), i, device=x.device)
+                     for i, n in enumerate(sections)])[: hd // 2]
+    ang = positions3.float()[sec].movedim(0, -1) * freqs   # (B,S,hd/2)
+    return _rotate(x, ang)
 
 
 # ---------------------------------------------------------------------------
@@ -108,13 +128,15 @@ def apply_mlp(p, x, kind):
 # attention (GQA, optional sliding window, KV cache)
 # ---------------------------------------------------------------------------
 
-def init_attention(generator, cfg: ModelConfig, dtype, device):
+def init_attention(generator, cfg: ModelConfig, dtype, device,
+                   cross: bool = False):
+    """Self-attention, or cross-attention (no biases) with ``cross``."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {"wq": _init(generator, (d, H * hd), dtype, device),
          "wk": _init(generator, (d, K * hd), dtype, device),
          "wv": _init(generator, (d, K * hd), dtype, device),
          "wo": _init(generator, (H * hd, d), dtype, device)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", H), ("bk", K), ("bv", K)):
             p[name] = torch.zeros((n * hd,), dtype=dtype, device=device)
     return p
@@ -172,7 +194,8 @@ def sdpa(q, k, v, *, causal: bool, window: int | None = None,
          kv_seq_hint: bool = False):
     """Scaled-dot-product attention with GQA broadcast.
 
-    q: (B, Sq, H, hd); k/v: (B, Sk, K, hd).  The flash kernel takes the
+    q: (B, Sq, H, hd); k: (B, Sk, K, hd); v: (B, Sk, K, hd_v), the output
+    (B, Sq, H, hd_v) (MLA: hd 192, hd_v 128).  The flash kernel takes the
     call under the JAX package's gate (``layers.py:232-233``: no
     ``q_offset``, no ``length_mask``, ``Sq`` and ``Sk`` multiples of 128,
     ``hd % 8 == 0``) when the policy sends this device to the kernels, or
@@ -199,11 +222,15 @@ def sdpa(q, k, v, *, causal: bool, window: int | None = None,
                        kv_seq_hint=kv_seq_hint)
 
 
-def apply_attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
-                    window: int | None = None, cache=None):
-    """Self-attention, with an optional sliding ``window``.  ``cache``
-    (decode): dict with k/v (B, S_cache, K, hd) and ``idx`` (an int);
-    returns (y, new_cache).
+def apply_attention(p, x, cfg: ModelConfig, *, positions=None,
+                    positions3=None, causal=True, window: int | None = None,
+                    cache=None, kv_src=None, use_rope: bool = True):
+    """Self-attention, with an optional sliding ``window``, or
+    cross-attention to ``kv_src`` (B, S_src, d) (no RoPE, no cache).
+    RoPE turns q and k by ``positions3`` (3, B, S) where the config has
+    M-RoPE and they are given, else by ``positions``.  ``cache`` (decode):
+    dict with k/v (B, S_cache, K, hd) and ``idx`` (an int); returns
+    (y, new_cache).
 
     Decode has the JAX package's two branches (``layers.py:285-302``).  With
     a window and a cache no longer than it, the cache is a ring buffer: the
@@ -213,17 +240,22 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
     the query at offset ``idx``."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     b, s = x.shape[:2]
+    src = x if kv_src is None else kv_src
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, H, hd)
-    k = k.reshape(b, s, K, hd)
-    v = v.reshape(b, s, K, hd)
-    if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    k = k.reshape(b, src.shape[1], K, hd)
+    v = v.reshape(b, src.shape[1], K, hd)
+    if use_rope and kv_src is None:
+        if cfg.mrope and positions3 is not None:
+            q = apply_mrope(q, positions3, cfg.rope_theta)
+            k = apply_mrope(k, positions3, cfg.rope_theta)
+        elif positions is not None:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -241,4 +273,75 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions=None, causal=True,
     else:
         y = sdpa(q, k, v, causal=causal, window=window)
     out = y.reshape(b, s, H * hd) @ p["wo"]
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2 [arXiv:2405.04434])
+# ---------------------------------------------------------------------------
+
+def init_mla(generator, cfg: ModelConfig, dtype, device):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    p = {}
+    if m.q_lora:
+        p["wq_a"] = _init(generator, (d, m.q_lora), dtype, device)
+        p["wq_b"] = _init(generator, (m.q_lora, H * qd), dtype, device)
+    else:
+        p["wq"] = _init(generator, (d, H * qd), dtype, device)
+    # the joint KV low-rank compression and the decoupled rope key
+    p["wkv_a"] = _init(generator, (d, m.kv_lora + m.qk_rope_dim), dtype,
+                       device)
+    p["wkv_b"] = _init(generator,
+                       (m.kv_lora, H * (m.qk_nope_dim + m.v_head_dim)),
+                       dtype, device)
+    p["wo"] = _init(generator, (H * m.v_head_dim, d), dtype, device)
+    return p
+
+
+def apply_mla(p, x, cfg: ModelConfig, *, positions=None, causal=True,
+              cache=None):
+    """MLA attention -> (y, new_cache).  q and k have head dim
+    ``qk_nope + qk_rope`` (the rope key is one head, broadcast over all),
+    v has ``v_head_dim``.  The decode cache holds only the compressed
+    latent ``c_kv`` (B, S_cache, kv_lora) and the rope key ``k_rope``
+    (B, S_cache, qk_rope), written in place at ``idx``; ``wkv_b``
+    re-expands the whole cache each step, as in the JAX package."""
+    m = cfg.mla
+    H = cfg.n_heads
+    b, s, _ = x.shape
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    q = (x @ p["wq_a"]) @ p["wq_b"] if m.q_lora else x @ p["wq"]
+    q_nope, q_rope = q.reshape(b, s, H, qd).split(
+        [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    if positions is not None:
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora, m.qk_rope_dim],
+                                          dim=-1)
+    k_rope = k_rope[:, :, None, :]                         # (b,s,1,rope)
+    if positions is not None:
+        k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+
+    new_cache, valid, q_offset = None, None, 0
+    if cache is not None:
+        idx = cache["idx"]
+        c_kv = cache_write(cache["c_kv"], c_kv, idx)
+        r_all = cache_write(cache["k_rope"], k_rope[:, :, 0, :], idx)
+        new_cache = {"c_kv": c_kv, "k_rope": r_all, "idx": idx + s}
+        valid = torch.arange(c_kv.shape[1], device=x.device) < idx + s
+        k_rope, q_offset = r_all[:, :, None, :], idx
+
+    sk = c_kv.shape[1]
+    k_nope, v = (c_kv @ p["wkv_b"]).reshape(
+        b, sk, H, m.qk_nope_dim + m.v_head_dim).split(
+        [m.qk_nope_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, sk, H, m.qk_rope_dim)], dim=-1)
+    qh = torch.cat([q_nope, q_rope], dim=-1)
+    y = sdpa(qh, k, v, causal=causal and cache is None, q_offset=q_offset,
+             kv_seq_hint=cache is not None,
+             length_mask=None if valid is None
+             else valid[None, :].expand(b, sk))
+    out = y.reshape(b, s, H * m.v_head_dim) @ p["wo"]
     return out, new_cache

@@ -5,22 +5,27 @@ them out: ``{"embed", "groups": {"g0_dense": {...}}, "final_norm"}``, each
 group's leaves stacked on a leading layer axis.  A Griffin group holds
 ``{"subs": [one dict per sub-block]}``, a list, each leaf stacked over the
 superblocks.  Where JAX scans over that axis, the port loops over it in
-Python (``layer[i]`` is a view, no copy).  Ported: ``"dense"``, ``"mamba"``
-(family ``ssm``) and ``"griffin"`` / ``"griffin_tail"`` (family
-``hybrid``) blocks with token inputs; MoE, MLA, M-RoPE and the audio
-encoder-decoder raise :class:`NotImplementedError` naming the ROADMAP item
-that ports them.  The JAX package's sharding hints are identities without a
+Python (``layer[i]`` is a view, no copy).  Every block kind of the JAX
+package is here: ``"dense"`` (GQA or MLA attention), ``"moe"``,
+``"mamba"`` (family ``ssm``), ``"griffin"`` / ``"griffin_tail"`` (family
+``hybrid``) and the audio encoder-decoder's ``"enc"`` / ``"dec"`` (family
+``audio``: LayerNorm, GELU, no RoPE, cross-attention to the encoder's
+output).  Inputs are tokens, embeddings (``input_kind == "embeds"``: no
+embedding table, M-RoPE ``positions3``) or tokens with audio frames
+(``"audio"``).  The JAX package's sharding hints are identities without a
 mesh and are dropped.
 
 Public entry points:
   init_params(cfg, *, generator, device, dtype)
   forward(params, batch, cfg, remat=False, last_only=False) -> (logits, aux)
   loss_fn(params, batch, cfg, remat=False)     -> (loss, metrics)
-  init_decode_state(cfg, batch, max_len, dtype, device)
+  init_decode_state(cfg, batch, max_len, dtype, device, enc_out=None)
   decode_step(params, state, batch, cfg)        -> (logits, state)
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -29,14 +34,12 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
 from .config import ModelConfig
-from .layers import (_init, apply_attention, apply_mlp, init_attention,
-                     init_mlp, init_rmsnorm, rms_norm)
+from .layers import (_init, apply_attention, apply_mla, apply_mlp,
+                     init_attention, init_layernorm, init_mla, init_mlp,
+                     init_rmsnorm, layer_norm, rms_norm)
+from .moe import apply_moe, init_moe
 from .rglru import apply_recurrent_block, init_recurrent_block
 from .ssm import apply_mamba2, init_mamba2
-
-PORTED_KINDS = ("dense", "mamba", "griffin", "griffin_tail")
-
-_WAITING = "ROADMAP queue A, the MoE / MLA / VLM / audio families"
 
 
 # ---------------------------------------------------------------------------
@@ -75,18 +78,18 @@ def griffin_pattern(cfg: ModelConfig, kind: str) -> tuple[str, ...]:
     return pat
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise :class:`NotImplementedError` unless every part of ``cfg`` has
-    been ported."""
-    for kind, _ in layer_groups(cfg):
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet "
-                f"({_WAITING})")
-    if cfg.mla or cfg.mrope or cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA, M-RoPE and non-token inputs are not ported "
-            f"yet ({_WAITING})")
+def _norm_init(cfg: ModelConfig):
+    return init_layernorm if cfg.family == "audio" else init_rmsnorm
+
+
+def _norm_apply(cfg: ModelConfig):
+    return layer_norm if cfg.family == "audio" else rms_norm
+
+
+def dense_d_ff(cfg: ModelConfig) -> int:
+    """The MLP width of a ``"dense"`` block: an MoE config's
+    ``dense_d_ff`` where it has one, else ``d_ff``."""
+    return cfg.moe.dense_d_ff if cfg.moe and cfg.moe.dense_d_ff else cfg.d_ff
 
 
 def _layer(stacked, i):
@@ -131,89 +134,152 @@ def _count(gparams) -> int:
 
 def init_block(generator, cfg: ModelConfig, kind: str, dtype, device):
     d = cfg.d_model
-    if kind == "dense":
-        return {"n1": init_rmsnorm(d, dtype, device),
-                "attn": init_attention(generator, cfg, dtype, device),
-                "n2": init_rmsnorm(d, dtype, device),
-                "mlp": init_mlp(generator, d, cfg.d_ff, cfg.mlp, dtype,
-                                device)}
+    ninit = _norm_init(cfg)
+
+    def norm():
+        return ninit(d, dtype, device)
+
+    def attention(**kw):
+        return init_attention(generator, cfg, dtype, device, **kw)
+
+    def mlp(ff, kind_=cfg.mlp):
+        return init_mlp(generator, d, ff, kind_, dtype, device)
+
+    if kind in ("dense", "moe"):
+        attn = (init_mla(generator, cfg, dtype, device) if cfg.mla
+                else attention())
+        out = {"n1": norm(), "attn": attn, "n2": norm()}
+        if kind == "moe":
+            out["moe"] = init_moe(generator, cfg, dtype, device)
+        else:
+            out["mlp"] = mlp(dense_d_ff(cfg))
+        return out
     if kind == "mamba":
-        return {"n1": init_rmsnorm(d, dtype, device),
-                "mixer": init_mamba2(generator, cfg, dtype, device)}
+        return {"n1": norm(), "mixer": init_mamba2(generator, cfg, dtype,
+                                                   device)}
     if kind in ("griffin", "griffin_tail"):
         subs = []
         for sub in griffin_pattern(cfg, kind):
             mixer = (init_recurrent_block(generator, cfg, dtype, device)
-                     if sub == "rec"
-                     else init_attention(generator, cfg, dtype, device))
-            subs.append({"n1": init_rmsnorm(d, dtype, device),
-                         "mixer": mixer,
-                         "n2": init_rmsnorm(d, dtype, device),
-                         "mlp": init_mlp(generator, d, cfg.d_ff, cfg.mlp,
-                                         dtype, device)})
+                     if sub == "rec" else attention())
+            subs.append({"n1": norm(), "mixer": mixer, "n2": norm(),
+                         "mlp": mlp(cfg.d_ff)})
         return {"subs": subs}
-    raise NotImplementedError(f"block kind {kind!r}: {_WAITING}")
+    if kind == "enc":
+        return {"n1": norm(), "attn": attention(), "n2": norm(),
+                "mlp": mlp(cfg.d_ff, "gelu")}
+    if kind == "dec":
+        return {"n1": norm(), "attn": attention(), "nx": norm(),
+                "xattn": attention(cross=True), "n2": norm(),
+                "mlp": mlp(cfg.d_ff, "gelu")}
+    raise ValueError(kind)
 
 
 def apply_block(p, x, cfg: ModelConfig, kind: str, ctx: dict, cache=None):
-    """Returns (y, new_cache)."""
+    """Returns (y, new_cache, aux); aux is the MoE block's load-balance
+    loss (fp32 scalar), None for every other block."""
+    napp = _norm_apply(cfg)
     eps = cfg.norm_eps
-    if kind == "dense":
-        y, nc = apply_attention(p["attn"], rms_norm(p["n1"], x, eps), cfg,
-                                positions=ctx.get("positions"),
-                                causal=ctx.get("causal", True), cache=cache)
+    aux = None
+
+    def attn_call(ap, h, *, window=None, cross=False, c=None):
+        if cfg.mla and not cross:
+            return apply_mla(ap, h, cfg, positions=ctx.get("positions"),
+                             cache=c)
+        return apply_attention(
+            ap, h, cfg, positions=ctx.get("positions"),
+            positions3=ctx.get("positions3"),
+            causal=False if cross else ctx.get("causal", True),
+            window=window, cache=c,
+            kv_src=ctx.get("enc_out") if cross else None,
+            use_rope=not cross and cfg.family != "audio")
+
+    if kind in ("dense", "moe"):
+        y, nc = attn_call(p["attn"], napp(p["n1"], x, eps), c=cache)
         x = x + y
-        return x + apply_mlp(p["mlp"], rms_norm(p["n2"], x, eps),
-                             cfg.mlp), nc
+        h = napp(p["n2"], x, eps)
+        if kind == "moe":
+            y2, aux = apply_moe(p["moe"], h, cfg)
+        else:
+            y2 = apply_mlp(p["mlp"], h, cfg.mlp)
+        return x + y2, nc, aux
     if kind == "mamba":
-        y, nc = apply_mamba2(p["mixer"], rms_norm(p["n1"], x, eps), cfg,
-                             cache)
-        return x + y, nc
+        y, nc = apply_mamba2(p["mixer"], napp(p["n1"], x, eps), cfg, cache)
+        return x + y, nc, aux
     if kind in ("griffin", "griffin_tail"):
         new_caches = []
         for j, sub in enumerate(griffin_pattern(cfg, kind)):
             sp = p["subs"][j]
             cj = cache[j] if cache is not None else None
-            h = rms_norm(sp["n1"], x, eps)
+            h = napp(sp["n1"], x, eps)
             if sub == "rec":
                 y, nc = apply_recurrent_block(sp["mixer"], h, cfg, cj)
             else:
-                y, nc = apply_attention(
-                    sp["mixer"], h, cfg, positions=ctx.get("positions"),
-                    causal=ctx.get("causal", True),
-                    window=cfg.hybrid.window, cache=cj)
+                y, nc = attn_call(sp["mixer"], h, window=cfg.hybrid.window,
+                                  c=cj)
             x = x + y
-            x = x + apply_mlp(sp["mlp"], rms_norm(sp["n2"], x, eps), cfg.mlp)
+            x = x + apply_mlp(sp["mlp"], napp(sp["n2"], x, eps), cfg.mlp)
             new_caches.append(nc)
-        return x, (new_caches if cache is not None else None)
-    raise NotImplementedError(f"block kind {kind!r}: {_WAITING}")
+        return x, (new_caches if cache is not None else None), aux
+    if kind == "enc":
+        y, _ = apply_attention(p["attn"], napp(p["n1"], x, eps), cfg,
+                               causal=False, use_rope=False)
+        x = x + y
+        return x + apply_mlp(p["mlp"], napp(p["n2"], x, eps), "gelu"), \
+            None, aux
+    if kind == "dec":
+        c_self = cache["self"] if cache is not None else None
+        y, nc = attn_call(p["attn"], napp(p["n1"], x, eps), c=c_self)
+        x = x + y
+        yx, _ = attn_call(p["xattn"], napp(p["nx"], x, eps), cross=True)
+        x = x + yx
+        x = x + apply_mlp(p["mlp"], napp(p["n2"], x, eps), "gelu")
+        return x, ({"self": nc} if nc is not None else None), aux
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
 # parameter init
 # ---------------------------------------------------------------------------
 
+def _init_stack(generator, cfg: ModelConfig, kind: str, count: int, dtype,
+                device):
+    """``count`` blocks of ``kind``, each leaf stacked on a leading axis:
+    allocated once as ``(count, ...)`` and filled block by block."""
+    first = init_block(generator, cfg, kind, dtype, device)
+    stacked = tree_map(lambda a: a.new_empty((count,) + a.shape), first)
+    _set_layer(stacked, 0, first)
+    del first
+    for i in range(1, count):
+        _set_layer(stacked, i, init_block(generator, cfg, kind, dtype,
+                                          device))
+    return stacked
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device=None, dtype=torch.float32) -> dict:
     """Random parameters drawn from ``generator``, which must live on
     ``device`` (``cuda`` unless ``"cpu"`` is asked for).  Each stacked leaf
     is allocated once, as ``(L, ...)``, and filled layer by layer, so the
-    peak is the parameters plus one layer."""
-    check_ported(cfg)
+    peak is the parameters plus one layer.  A config with embedding inputs
+    has no ``embed`` table; an encoder-decoder adds ``encoder`` (stacked
+    ``"enc"`` blocks) and ``enc_norm``."""
     device = resolve_device(device)
-    params: dict = {
-        "embed": _init(generator, (cfg.vocab, cfg.d_model), dtype, device),
-        "groups": {}}
-    for gi, (kind, count) in enumerate(layer_groups(cfg)):
-        first = init_block(generator, cfg, kind, dtype, device)
-        stacked = tree_map(lambda a: a.new_empty((count,) + a.shape), first)
-        _set_layer(stacked, 0, first)
-        del first
-        for i in range(1, count):
-            _set_layer(stacked, i,
-                       init_block(generator, cfg, kind, dtype, device))
-        params["groups"][f"g{gi}_{kind}"] = stacked
-    params["final_norm"] = init_rmsnorm(cfg.d_model, dtype, device)
+    ninit = _norm_init(cfg)
+    params: dict = {}
+    if cfg.input_kind == "tokens" or cfg.encdec:
+        params["embed"] = _init(generator, (cfg.vocab, cfg.d_model), dtype,
+                                device)
+    params["groups"] = {
+        f"g{gi}_{kind}": _init_stack(generator, cfg, kind, count, dtype,
+                                     device)
+        for gi, (kind, count) in enumerate(layer_groups(cfg))}
+    if cfg.encdec:
+        params["encoder"] = _init_stack(generator, cfg, "enc",
+                                        cfg.encdec.n_enc_layers, dtype,
+                                        device)
+        params["enc_norm"] = ninit(cfg.d_model, dtype, device)
+    params["final_norm"] = ninit(cfg.d_model, dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = _init(generator, (cfg.d_model, cfg.vocab), dtype,
                                   device)
@@ -224,12 +290,62 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 # forward
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(params, batch):
-    return F.embedding(batch["tokens"], params["embed"])
+def _sinusoid(positions, d: int, dtype):
+    """Sinusoidal position embedding (the JAX package's stand-in for
+    Whisper's learned table): sin and cos of ``positions`` (any shape)
+    times ``d / 2`` geometric frequencies from 1 to 1/10000."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                     / max(half - 1, 1))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def token_embeds(tokens, d_model: int, dtype=torch.float32):
+    """Tokens as a model with embedding inputs takes them:
+    one_hot(token % d_model) * 0.02, the JAX trainer's map
+    (``repro/launch/train.py:make_batch``)."""
+    return F.one_hot(tokens.long() % d_model, d_model).to(dtype) * 0.02
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig, pos: int | None = None):
+    """The decoder's input (B, S, d): ``batch["embeds"]`` for embedding
+    inputs, else the embedded tokens, plus the sinusoid at positions 0..S-1
+    (or at ``pos``, a decode step's) for the audio family."""
+    if cfg.input_kind == "embeds":
+        return batch["embeds"]
+    tokens = batch["tokens"]
+    x = F.embedding(tokens, params["embed"])
+    if cfg.family == "audio":
+        b, s = tokens.shape
+        p = (torch.arange(s, device=x.device) if pos is None
+             else torch.full((s,), pos, device=x.device))
+        x = x + _sinusoid(p[None].expand(b, s), cfg.d_model, x.dtype)
+    return x
+
+
+def run_encoder(params, batch, cfg: ModelConfig, remat: bool = False):
+    """The audio encoder (``repro/models/model.py:_run_encoder``) over
+    ``batch["audio_embeds"]`` (B, frames, d): the sinusoid added, the
+    ``"enc"`` blocks, then ``enc_norm``."""
+    h = batch["audio_embeds"]
+    b, f = h.shape[:2]
+    h = h + _sinusoid(torch.arange(f, device=h.device)[None].expand(b, f),
+                      cfg.d_model, h.dtype)
+
+    def enc(x, lp):
+        return apply_block(lp, x, cfg, "enc", {})[0]
+
+    for lp in _layers(params["encoder"]):
+        h = (checkpoint(enc, h, lp, use_reentrant=False,
+                        preserve_rng_state=False) if remat else enc(h, lp))
+    return _norm_apply(cfg)(params["enc_norm"], h, cfg.norm_eps)
 
 
 def _head(params, x, cfg: ModelConfig):
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x = _norm_apply(cfg)(params["final_norm"], x, cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
@@ -243,30 +359,41 @@ def forward(params, batch, cfg: ModelConfig, remat: bool = False,
     (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
     each scanned block in ``jax.checkpoint``; the kernels then run once in
     the forward and once in the recompute.  ``last_only`` computes the LM
-    head on the final position only (prefill serving)."""
-    check_ported(cfg)
-    x = _embed_inputs(params, batch)
+    head on the final position only (prefill serving).  ``aux_loss`` is
+    the MoE blocks' load-balance losses summed (fp32), zero without MoE.
+    The batch holds ``tokens``, or ``embeds`` and ``positions3`` (M-RoPE),
+    and ``audio_embeds`` for an encoder-decoder."""
+    x = _embed_inputs(params, batch, cfg)
     b, s = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    ctx = {"positions": positions, "causal": True}
+    ctx = {"positions": positions, "positions3": batch.get("positions3"),
+           "causal": True}
+    if cfg.encdec:
+        ctx["enc_out"] = run_encoder(params, batch, cfg, remat=remat)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gname, gparams in params["groups"].items():
         kind = gname.split("_", 1)[1]
 
         def blk(x, lp, kind=kind):
-            return apply_block(lp, x, cfg, kind, ctx)[0]
+            y, _, aux = apply_block(lp, x, cfg, kind, ctx)
+            return y, aux
 
+        auxs = []
         for lp in _layers(gparams):
             if remat:
-                x = checkpoint(blk, x, lp, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, aux = checkpoint(blk, x, lp, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
-                x = blk(x, lp)
+                x, aux = blk(x, lp)
+            if aux is not None:
+                auxs.append(aux)
+        if auxs:
+            aux_total = aux_total + torch.stack(auxs).sum()
     if last_only:
         x = x[:, -1:, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _head(params, x, cfg), aux
+    return _head(params, x, cfg), aux_total
 
 
 def loss_fn(params, batch, cfg: ModelConfig, remat: bool = False):
@@ -321,26 +448,38 @@ def _empty_cache_block(cfg: ModelConfig, kind: str, count: int, batch: int,
                             "v": zeros(batch, wlen, cfg.n_kv_heads, cfg.hd),
                             "idx": 0})
         return out
-    return {"k": zeros(batch, max_len, cfg.n_kv_heads, cfg.hd),
-            "v": zeros(batch, max_len, cfg.n_kv_heads, cfg.hd),
-            "idx": 0}
+    if cfg.mla:
+        m = cfg.mla
+        return {"c_kv": zeros(batch, max_len, m.kv_lora),
+                "k_rope": zeros(batch, max_len, m.qk_rope_dim), "idx": 0}
+    kv = {"k": zeros(batch, max_len, cfg.n_kv_heads, cfg.hd),
+          "v": zeros(batch, max_len, cfg.n_kv_heads, cfg.hd),
+          "idx": 0}
+    return {"self": kv} if kind == "dec" else kv
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      dtype=torch.float32, device=None) -> dict:
+                      dtype=torch.float32, device=None,
+                      enc_out=None) -> dict:
     """Per-group caches stacked on a leading layer axis, and the step
-    counter ``pos``.  Dense: ``{"k", "v": (L, B, max_len, K, hd), "idx"}``.
-    Mamba: ``{"conv": (L, B, d_conv-1, d_inner+2n)`` in ``dtype``,
-    ``"state": (L, B, heads, head_dim, n)`` fp32``}``.  Griffin: a list, one
-    entry per sub-block: ``{"conv", "h"}`` (h fp32) for a recurrent one,
-    ``{"k", "v": (L, B, min(window, max_len), K, hd), "idx"}`` for local
-    attention."""
-    check_ported(cfg)
+    counter ``pos``.  Dense and MoE: ``{"k", "v": (L, B, max_len, K, hd),
+    "idx"}``, or with MLA the latent ``{"c_kv": (L, B, max_len, kv_lora),
+    "k_rope": (L, B, max_len, qk_rope), "idx"}``.  Decoder of an
+    encoder-decoder: ``{"self": {"k", "v", "idx"}}``, and ``enc_out``
+    (B, frames, d), the encoder's output that cross-attention reads, is
+    kept in the state.  Mamba: ``{"conv": (L, B, d_conv-1, d_inner+2n)`` in
+    ``dtype``, ``"state": (L, B, heads, head_dim, n)`` fp32``}``.  Griffin:
+    a list, one entry per sub-block: ``{"conv", "h"}`` (h fp32) for a
+    recurrent one, ``{"k", "v": (L, B, min(window, max_len), K, hd),
+    "idx"}`` for local attention."""
     device = resolve_device(device)
     caches = {f"g{gi}_{kind}": _empty_cache_block(cfg, kind, count, batch,
                                                   max_len, dtype, device)
               for gi, (kind, count) in enumerate(layer_groups(cfg))}
-    return {"caches": caches, "pos": 0}
+    state = {"caches": caches, "pos": 0}
+    if enc_out is not None:
+        state["enc_out"] = enc_out
+    return state
 
 
 def _advance(cache, s: int):
@@ -349,25 +488,29 @@ def _advance(cache, s: int):
         return [_advance(c, s) for c in cache]
     if "idx" in cache:
         return {**cache, "idx": cache["idx"] + s}
-    return cache
+    return {k: _advance(v, s) if isinstance(v, (dict, list)) else v
+            for k, v in cache.items()}
 
 
 def decode_step(params, state, batch, cfg: ModelConfig):
-    """One-token decode.  batch: {tokens: (B, 1)}.  Returns
-    (logits (B, 1, V), new_state).  The caches of ``state`` are written in
-    place and shared with the new state."""
+    """One-token decode.  batch: {tokens: (B, 1)}, or {embeds: (B, 1, d),
+    positions3: (3, B, 1)} for embedding inputs.  Returns (logits
+    (B, 1, V), new_state).  The caches of ``state`` are written in place
+    and shared with the new state."""
     pos = state["pos"]
-    x = _embed_inputs(params, batch)
+    x = _embed_inputs(params, batch, cfg, pos=pos)
     b, s = x.shape[:2]
     ctx = {"positions": torch.full((b, s), pos, device=x.device),
-           "causal": True}
+           "positions3": batch.get("positions3"), "causal": True}
+    if "enc_out" in state:
+        ctx["enc_out"] = state["enc_out"]
     new_caches = {}
     for gname, gparams in params["groups"].items():
         kind = gname.split("_", 1)[1]
         cache = state["caches"][gname]
         for i in range(_count(gparams)):
-            x, nc = apply_block(_layer(gparams, i), x, cfg, kind, ctx,
-                                cache=_layer(cache, i))
+            x, nc, _ = apply_block(_layer(gparams, i), x, cfg, kind, ctx,
+                                   cache=_layer(cache, i))
             _set_layer(cache, i, nc)
         new_caches[gname] = _advance(cache, s)
     return _head(params, x, cfg), {**state, "caches": new_caches,

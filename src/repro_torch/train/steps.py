@@ -7,7 +7,10 @@ around each block, fp32 gradient accumulation, AdamW update in place.
 
 ``build_prefill_step`` / ``build_decode_step``: the serving pair -- prefill
 runs a full forward over the context; decode consumes one token with the
-KV caches as carried state.  Both run without autograd.
+KV caches as carried state.  Both run without autograd, and pass the
+batch through whole: ``tokens``, or ``embeds`` and ``positions3`` for
+embedding inputs, and ``audio_embeds`` for an encoder-decoder's prefill
+(its decode state carries ``enc_out``).
 
 The reference's sharding hints (``repro.sharding.hints``) have no meaning
 on one device and are left out.  Its ``build_graph_train_step`` and
@@ -29,12 +32,20 @@ from ..tree import tree_leaves, unflatten_like
 def _split(batch: dict, n: int) -> list[dict]:
     """``n`` microbatches of ``batch``: each tensor whose leading dim
     divides by ``n`` is cut into ``n`` consecutive slices along it, as the
-    reference's ``(G, ...) -> (n, G/n, ...)`` reshape cuts it; any other
-    leaf goes whole to every microbatch."""
-    cut = {k: torch.chunk(v, n) if torch.is_tensor(v) and v.dim() >= 1
-           and v.shape[0] % n == 0 else None for k, v in batch.items()}
-    return [{k: batch[k] if cut[k] is None else cut[k][j] for k in batch}
-            for j in range(n)]
+    reference's ``(G, ...) -> (n, G/n, ...)`` reshape cuts it, and M-RoPE's
+    ``positions3`` (3, G, S) along its batch dim; any other leaf goes whole
+    to every microbatch.  (The reference takes any leaf of shape (3, ...)
+    for ``positions3``; the port goes by its name.)"""
+    def cut(k, v):
+        if k == "positions3":
+            return torch.chunk(v, n, dim=1)
+        if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] % n == 0:
+            return torch.chunk(v, n)
+        return None
+
+    parts = {k: cut(k, v) for k, v in batch.items()}
+    return [{k: batch[k] if parts[k] is None else parts[k][j]
+             for k in batch} for j in range(n)]
 
 
 def accumulate_grads(params, batch, cfg: ModelConfig,

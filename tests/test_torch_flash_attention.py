@@ -142,18 +142,56 @@ def test_ref_policy_selects_plain_version_for_cuda_shapes():
     ((1, 4, 128, 96), (1, 2, 128, 96), False),      # head dim
     ((1, 6, 128, 64), (1, 4, 128, 64), False),      # GQA ratio
     ((1, 4, 128, 64), (1, 2, 128, 128), False),     # unequal head dims
+    ((4, 128, 512, 192), (4, 128, 512, 192), False),  # MLA's q/k, v at 192
     ((1, 4, 128, 64), (2, 2, 128, 64), False),      # batch
 ])
 def test_attention_eligible(q_shape, kv_shape, ok):
     assert policy.attention_eligible(q_shape, kv_shape) is ok
 
 
+@pytest.mark.parametrize("k_d,v_d,ok", [
+    (192, 128, True),      # DeepSeek-V2's MLA: qk_nope 128 + rope 64, v 128
+    (192, 192, False),
+    (128, 192, False),
+    (64, 128, False),
+    (256, 128, False),
+])
+def test_attention_eligible_reads_v_head_dim(k_d, v_d, ok):
+    q, k, v = (4, 128, 512, k_d), (4, 128, 512, k_d), (4, 128, 512, v_d)
+    assert policy.attention_eligible(q, k, v) is ok
+    assert policy.attention_eligible(q, k, (4, 128, 256, v_d)) is False
+    if ok:
+        assert policy.select_attention_impl(q, k, "cuda", v) == "cuda"
+    else:
+        with pytest.raises(ValueError, match="does not take"):
+            policy.select_attention_impl(q, k, "cuda", v)
+
+
 def test_select_attention_impl_is_memoized_per_shape():
     key = ((1, 4, 128, 64), (1, 2, 128, 64))
     policy.select_attention_impl(*key, "cpu")
-    assert (key[0], key[1], "cpu") in policy._impl_cache
+    assert (key[0], key[1], key[1], "cpu") in policy._impl_cache
     policy.set_policy("auto")
     assert not policy._impl_cache
+
+
+def test_wrapper_takes_mla_head_dims_and_gives_v_head_dim():
+    """q and k at 192 with v at 128 pass the checks; on the CPU the
+    wrapper runs the plain version, whose output has v's head dim and
+    whose scale is q's 1/sqrt(192)."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 4, 128, 192), generator=g)
+    k = torch.randn((1, 2, 128, 192), generator=g)
+    v = torch.randn((1, 2, 128, 128), generator=g)
+    fa.check_inputs(q, k, v, None)
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert out.shape == (1, 4, 128, 128)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q,
+                          k.repeat_interleave(2, 1)) / 192 ** 0.5
+    mask = torch.ones(128, 128, dtype=torch.bool).tril()
+    want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(
+        logits.masked_fill(~mask, -1e30), -1), v.repeat_interleave(2, 1))
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("change,err", [
@@ -162,13 +200,17 @@ def test_select_attention_impl_is_memoized_per_shape():
     (dict(dtype=torch.float16), TypeError),
     (dict(window=0), ValueError),
     (dict(strided=True), ValueError),
+    (dict(dv=96), ValueError),
+    (dict(d=192, dv=192), ValueError),
+    (dict(vs=64), ValueError),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(change, err):
     d, kh = change.get("d", 64), change.get("kh", 2)
     dt = change.get("dtype", torch.float32)
     q = torch.zeros((1, 4, 128, d), dtype=dt)
     k = torch.zeros((1, kh, 128, d), dtype=dt)
-    v = torch.zeros((1, kh, 128, d), dtype=dt)
+    v = torch.zeros((1, kh, change.get("vs", 128), change.get("dv", d)),
+                    dtype=dt)
     if change.get("strided"):
         q = torch.zeros((1, 4, 128, 2 * d))[..., ::2]
     with pytest.raises(err):

@@ -93,6 +93,32 @@ def test_flash_attention_bf16_tensor_cores(cuda, d, b, h, kh, sq, sk, causal,
             h // kh, 1)).abs().max().item() <= 2e-2
 
 
+# DeepSeek-V2's MLA prefill: q and k at head dim 192, v at 128, 128 heads (no
+# GQA), causal; k and v as column views of one (B, S, H, 320) tensor, as the
+# model's split of ``wkv_b``'s output and the rope key give them
+@pytest.mark.parametrize("dtype,b,h,s,atol", [
+    (torch.float32, 4, 128, 512, 1e-4),
+    (torch.bfloat16, 4, 128, 512, 2e-2),
+    (torch.float32, 1, 4, 300, 1e-4),
+    (torch.bfloat16, 1, 4, 200, 2e-2),
+])
+def test_flash_attention_mla_head_dims(cuda, dtype, b, h, s, atol):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((b, s, h, 192), generator=g, device=cuda).to(dtype)
+    kv = torch.randn((b, s, h, 320), generator=g, device=cuda).to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in (q, kv[..., :192], kv[..., 192:]))
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    assert out.dtype == dtype and out.shape == (b, h, s, 128)
+    assert (out.float() - want).abs().max().item() <= atol
+    # a pair the kernel is not built for raises, never falls back
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, k, kv[..., :192].transpose(1, 2))
+
+
 # RecurrentGemma-9B's local attention: head dim 256, MQA, window 2048 (which
 # never bites at S = 512) and 128 (which does)
 @pytest.mark.parametrize("dtype,window,s,atol", [
@@ -327,7 +353,8 @@ def _leaf(t):
 def _grad_cases(cuda):
     """(name, kernel module, with_grad call, plain call, leaves): the
     training path's shapes at one microbatch of 4 x 512 -- B1 at Qwen2-1.5B's
-    D=128 and RecurrentGemma-9B's D=256 (window 2048), B2 at Mamba2-370M's,
+    D=128, RecurrentGemma-9B's D=256 (window 2048) and DeepSeek-V2's MLA
+    (q / k 192, v 128; 16 of its 128 heads), B2 at Mamba2-370M's,
     B3 at RecurrentGemma-9B's -- fp32, each input a leaf that needs a
     gradient (dt and A through the model's own softplus and -exp)."""
     g = torch.Generator(device=cuda).manual_seed(6)
@@ -336,11 +363,14 @@ def _grad_cases(cuda):
         return _leaf(torch.randn(shape, generator=g, device=cuda) * scale)
     F = torch.nn.functional
     cases = []
-    for d, h, kh, window in ((128, 12, 2, None), (256, 16, 1, 2048)):
+    for name, d, dv, h, kh, window in (
+            ("flash D128", 128, 128, 12, 2, None),
+            ("flash D256", 256, 256, 16, 1, 2048),
+            ("flash D192/128", 192, 128, 16, 16, None)):
         q = _leaf(rnd(4, 512, h, d).transpose(1, 2))
-        k, v = rnd(4, kh, 512, d), rnd(4, kh, 512, d)
+        k, v = rnd(4, kh, 512, d), rnd(4, kh, 512, dv)
         kw = dict(causal=True, window=window)
-        cases.append((f"flash D{d}", fa,
+        cases.append((name, fa,
                       lambda q, k, v, kw=kw: fa.flash_attention_with_grad(
                           q, k, v, **kw),
                       lambda q, k, v, kw=kw: flash_attention_ref(q, k, v,
@@ -369,8 +399,8 @@ def _grad_cases(cuda):
     return cases
 
 
-@pytest.mark.parametrize("which", ["flash D128", "flash D256", "ssd",
-                                   "rglru"])
+@pytest.mark.parametrize("which", ["flash D128", "flash D256",
+                                   "flash D192/128", "ssd", "rglru"])
 def test_kernel_function_forward_and_grads_on_the_card(cuda, which):
     """On CUDA tensors that need a gradient, each kernel's Function returns
     an output with a ``grad_fn``; its forward launches the kernel once (and

@@ -210,12 +210,25 @@ def test_sdpa_query_chunked_path_matches_one_block():
     np.testing.assert_allclose(chunked.numpy(), whole.numpy(), atol=1e-6)
 
 
-def test_unported_families_raise(cfgs):
-    g = torch.Generator().manual_seed(0)
-    for arch in ("deepseek-v2-236b", "whisper-large-v3", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.init_params(get_config(arch).reduced(), generator=g,
-                           device="cpu")
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b",
+                                  "qwen2-vl-72b", "whisper-large-v3"])
+def test_new_families_convert_one_to_one(arch):
+    """The MoE, MLA, embedding-input and encoder-decoder trees carry over
+    leaf for leaf: each JAX leaf used once, at its path and shape, and
+    back again."""
+    jcfg, tcfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
+    jtree = jax.tree.map(np.asarray,
+                         jm.init_params(jax.random.PRNGKey(1), jcfg))
+    params = convert.params_from_jax(jtree, tcfg, device="cpu")
+    src = dict(paths(jtree))
+    got = dict(paths(params))
+    assert got.keys() == src.keys() == convert.param_shapes(tcfg).keys()
+    for path, t in got.items():
+        np.testing.assert_array_equal(t.numpy(), src[path])
+    back = dict(paths(convert.params_to_jax(params, tcfg)))
+    assert back.keys() == src.keys()
+    for path, a in back.items():
+        np.testing.assert_array_equal(a, src[path])
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(cfgs, monkeypatch):

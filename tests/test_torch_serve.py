@@ -145,7 +145,7 @@ sys.exit(1 if bad else 0)
     ("repro_torch.optim.adamw", "repro_torch.models.graph_block"),
     ("repro_torch.launch.train",), ("repro_torch.checkpoint.store",),
     ("repro_torch.data.pipeline",), ("repro_torch.search",),
-    ("repro_torch.tree",),
+    ("repro_torch.tree",), ("repro_torch.models.moe",),
     ("repro_torch.train.steps", "repro_torch.kernels.autograd"),
     ("repro_torch.elastic", "repro_torch.scenarios.elastic",
      "repro_torch.scenarios.hetero", "repro_torch.scenarios.mixed_length",

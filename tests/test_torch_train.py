@@ -397,10 +397,19 @@ def test_trainer_cli_runs_on_the_cpu(arch, tmp_path, capsys):
     assert np.isfinite(more["losses"]).all()
 
 
-def test_trainer_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlaunch.main(["--device", "cpu", "--reduced", "--arch",
-                      "qwen2-vl-72b", "--steps", "1"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b",
+                                  "qwen2-vl-72b", "whisper-large-v3"])
+def test_trainer_cli_runs_the_new_families(arch):
+    """MoE with MLA, MoE, embedding inputs with M-RoPE, and the audio
+    encoder-decoder train through the CLI: two steps, finite losses that
+    change, finite gradient norms."""
+    out = tlaunch.main(["--device", "cpu", "--reduced", "--arch", arch,
+                        "--steps", "2", "--batch", "4", "--seq", "32",
+                        "--microbatches", "2", "--no-strategy-report"])
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    assert out["losses"][0] != out["losses"][1]
+    assert np.isfinite(out["grad_norms"]).all()
+    assert out["launches"] == [{"flash": 0, "ssd": 0, "rglru": 0}] * 2
 
 
 def test_trainer_cli_runs_the_elastic_probe(capsys):
