@@ -126,8 +126,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    be.  Prefill ms, decode tok/s, peak memory and the device's busy share,
    and B1 at Grok-1's, Qwen2-VL's and Whisper's prefill shapes against its
    plain version, its bound and SDPA.
-10. the training line, the elastic line, the pipeline line, the families
-   line, the kernels line, then the card line, then the result line.
+10. ranks sharing the card (``torch.distributed`` over gloo, every
+   payload staged through host memory; NCCL refuses two ranks on one GPU
+   and runs only where there is a GPU per rank).  (a) The rank selftest's
+   comm sweep (``python -m repro_torch.runtime.selftest --cases comm``
+   under ``runtime.harness.run_ranks``) at 2 and 4 ranks: every CommStep
+   kind on normal (exact) and integer (fast) shards, hsplits and the round
+   trips, bitwise the port's simulator in every rank; the messages,
+   collectives and staged bytes per case.  (b) Phase 5's program on 4
+   ranks through ``api.DistExecutor``, each rank rebuilding phase 5's
+   weights and feeds from seed 0, 3 steps: B1 twice a step on every rank
+   (24 in all) at q (2, 6, 512, 128), the losses within rtol 1e-5 of phase
+   5's and the weights, m and v after step 3 within phase 7's limits of
+   phase 5's final state (which ``main`` writes to a temporary directory
+   after phase 7), and whether they came out bitwise; each rank's step
+   split (pack, compute, comm into host staging and exchanges, fetch,
+   AdamW), traffic and peak memory; then B1 at a rank's shape against its
+   plain version, its bound and SDPA.
+11. the training line, the elastic line, the pipeline line, the families
+   line, the ranks line, the kernels line, then the card line, then the
+   result line.
 
 Needs a visible CUDA device and the repository's ``src/`` beside it; it
 imports nothing of JAX and nothing of the JAX package.
@@ -139,6 +157,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -232,6 +251,13 @@ FAMILIES = (("deepseek-v2-236b", 3, 512), ("grok-1-314b", 2, 512),
 #: top-k, or whether capacity keeps it) may differ between the kernels and
 #: the plain versions: they differ by ~1e-6, which flips a near-tie
 ROUTING_FLIP_MAX = 0.01
+#: phase 10: ranks sharing the card over gloo: the world sizes of the kind
+#: sweep, then phase 5's program on DIST_RANKS ranks (dp2 x tp2) for
+#: DIST_STEPS steps, each rank's B1 launches a step (one a layer), and the
+#: ranks' time limits (s)
+DIST_SWEEP = (2, 4)
+DIST_RANKS, DIST_STEPS = 4, 3
+DIST_SWEEP_TIMEOUT, DIST_RUN_TIMEOUT = 120, 420
 
 
 def fail(msg: str):
@@ -1162,11 +1188,13 @@ def train_launches_per_step(cfg) -> dict[str, int]:
 
 def worst_normwise(pairs, skip=frozenset()):
     """The largest ||a - b|| / ||b|| over (name, a, b), names in ``skip``
-    left out -> (error, name)."""
+    left out -> (error, name).  In float64 on the card: tensors on the host
+    are copied there first."""
     worst = (0.0, "")
     for name, a, b in pairs:
         if name in skip:
             continue
+        a, b = a.to("cuda"), b.to("cuda")
         norm = b.double().norm().item()
         err = (a.double() - b.double()).norm().item() / norm if norm else \
             a.abs().max().item()
@@ -1779,8 +1807,7 @@ def phase_elastic(torch, fa, ir_run):
     # under dp2 x tp2, so the norms run over the same shards on both
     # sides (each replica counted on both, which leaves the ratio as is)
     def flat(st):
-        return torch.from_numpy(np.concatenate(
-            [st.parts[d].ravel() for d in sorted(st.parts)]))
+        return torch.from_numpy(flat_parts(st))
 
     t_cmp = time.perf_counter()
     worst = {}
@@ -2337,6 +2364,278 @@ def phase_families(torch, policy, fa, ref):
     return runs, b1, t_phase
 
 
+def flat_parts(st):
+    """A ShardedTensor's parts raveled and concatenated in device order:
+    every replica in its own place, so a replica that differs from its
+    twin shows."""
+    import numpy as np
+    return np.concatenate([st.parts[d].ravel() for d in sorted(st.parts)])
+
+
+def dist_reference(ir_run, out_dir) -> str:
+    """Phase 5's losses and final weights, AdamW m and v, each leaf's
+    parts in device order (``flat_parts``), one ``.npy`` file each (phase
+    10's rank 0 maps them), with each leaf's annotation; written once;
+    returns the directory."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out = Path(out_dir)
+    np.save(out / "losses.npy", np.asarray(ir_run["losses"], np.float64))
+    names = {}
+    for key, state in ir_run["final"].items():
+        for i, (name, st) in enumerate(sorted(state.items())):
+            np.save(out / f"{key}-{i}.npy", flat_parts(st))
+            names[f"{key}|{name}"] = [f"{key}-{i}.npy", repr(st.annot)]
+    (out / "names.json").write_text(json.dumps(names))
+    print(f"  phase 5's final state written for phase 10 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return str(out)
+
+
+def dist_rank_main(argv=None) -> int:
+    """One rank of phase 10 (b), started by ``runtime.harness.run_ranks``:
+    phase 5's program, weights and feeds from seed 0, ``DIST_STEPS`` steps
+    on ``DistExecutor``; prints one ``DIST_RANK_JSON {...}`` line.  Rank 0
+    holds its final weights, m and v against phase 5's (``--ref``), part
+    by part (every replica), under the same annotations."""
+    import argparse
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_runtime_mesh
+    from repro_torch.models.graph_block import block_program
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--backend", required=True)
+    ap.add_argument("--device", required=True)
+    ap.add_argument("--ref", required=True)
+    args = ap.parse_args(argv)
+    t0 = time.perf_counter()
+    mesh = make_runtime_mesh(backend=args.backend, device=args.device)
+    cfg = get_config("qwen2-1.5b")
+    prog = block_program(cfg, batch=IR_BATCH, seq=IR_SEQ, n_layers=IR_LAYERS,
+                         dp=2, tp=2, pp=1)
+    rng = np.random.default_rng(0)
+    feeds = block_feeds(cfg, rng, IR_BATCH, IR_SEQ)
+    ws = block_weights(prog, rng)
+    ex = api.DistExecutor(mesh)
+    sess = api.Session(prog, 0, executor=ex)
+    sess.load(ws)
+    del ws
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    ex.times.sync = True
+    fa.launches = 0
+    for _ in range(DIST_STEPS):
+        before = fa.launches
+        ex.times.reset()
+        t0 = time.perf_counter()
+        r = sess.train_step(dict(feeds))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps.append(dict(loss=r.loss, wall_s=wall,
+                          launches=fa.launches - before,
+                          adamw_s=r.update_seconds, **ex.times.as_dict()))
+    launches = fa.launches
+    tplan = prog.compile_train(0)
+    lw = ex.lowered(tplan, [tplan.loss_name] + [
+        tplan.grad_map[t.name] for t in tplan.graph.parameters()])
+    comm, fetch = lw.comm_stats, lw.fetch_stats
+    out = dict(rank=mesh.rank, device=str(mesh.device), setup_s=setup_s,
+               steps=steps, launches=launches,
+               dispatches=lw.stats.kernel_dispatches,
+               plain_dispatches=lw.stats.ref_dispatches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               host_state_gib=sum(
+                   p.nbytes for tree in (sess.weights, r.grads,
+                                         sess.opt_state["m"],
+                                         sess.opt_state["v"])
+                   for st in tree.values() for p in st.parts.values())
+               / 2**30,
+               comm={k: getattr(comm, k) for k in (
+                   "p2p_messages", "p2p_bytes", "collectives",
+                   "staged_bytes")},
+               fetch={k: getattr(fetch, k) for k in (
+                   "collectives", "staged_bytes")})
+    if mesh.rank == 0:
+        # every leaf's parts in device order on both sides, as phase 7
+        # compares: a replica that drifted from its twin counts
+        t0 = time.perf_counter()
+        ref = Path(args.ref)
+        names = json.loads((ref / "names.json").read_text())
+        bitwise = [np.array_equal([s["loss"] for s in steps],
+                                  np.load(ref / "losses.npy"))]
+
+        def pairs(key, got):
+            for name, st in got.items():
+                path, annot = names[f"{key}|{name}"]
+                if repr(st.annot) != annot:
+                    fail(f"rank path: {key} {name} ends under "
+                         f"{st.annot}, phase 5's under {annot}")
+                have = torch.from_numpy(flat_parts(st)).cuda()
+                want = torch.from_numpy(np.load(
+                    ref / path, mmap_mode="r")[...]).cuda()
+                bitwise.append(torch.equal(have, want))
+                yield name, have, want
+
+        worst = {}
+        for key in ("weights", "m", "v"):
+            got = sess.weights if key == "weights" else sess.opt_state[key]
+            # the key biases' m and v are left out, as phase 7 does
+            worst[key] = worst_normwise(
+                pairs(key, got), skip={n for n in got if key != "weights"
+                                       and n.endswith("/bk")})
+        out.update(normwise=worst, bitwise=all(bitwise),
+                   compare_s=time.perf_counter() - t0)
+    print("DIST_RANK_JSON " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_reports(procs, tag) -> list[dict]:
+    """Each rank's ``<tag> {...}`` line, by rank."""
+    out = []
+    for p in procs:
+        line = [x for x in p.stdout.splitlines() if x.startswith(tag + " ")]
+        if len(line) != 1:
+            fail(f"a rank printed {len(line)} {tag} lines:\n{p.stdout[-2000:]}")
+        out.append(json.loads(line[0].split(" ", 1)[1]))
+    return out
+
+
+def phase_dist(torch, fa, ref, ref_state, ir_losses):
+    """Phase 10: ranks sharing the card.  (a) The selftest's comm sweep at
+    ``DIST_SWEEP`` ranks over gloo, each case bitwise against the port's
+    simulator in every rank; NCCL where there are GPUs enough.  (b) Phase
+    5's program on ``DIST_RANKS`` ranks through ``DistExecutor``, held to
+    phase 5's run under phase 7's limits.  Returns B1's launches and
+    timings on this path and the phase's numbers."""
+    from repro_torch.runtime.harness import run_ranks
+
+    print("== phase 10: ranks sharing the card (torch.distributed, gloo, "
+          "every payload staged through host memory)")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    sweep = {}
+    for n in DIST_SWEEP:
+        t0 = time.perf_counter()
+        procs = run_ranks("repro_torch.runtime.selftest", n, backend="gloo",
+                          device="cuda", timeout=DIST_SWEEP_TIMEOUT,
+                          extra_args=["--cases", "comm"])
+        rep = rank_reports(procs[:1], "RUNTIME_SELFTEST_JSON")[0]
+        wall = time.perf_counter() - t0
+        bad = [k for k, c in rep["cases"].items() if not c["ok"]]
+        print(f"  selftest at {n} ranks on {rep['device']} over "
+              f"{rep['backend']}: {len(rep['cases'])} cases, "
+              f"{'all bitwise the simulator' if not bad else bad} "
+              f"({wall:.1f} s); per case, over the ranks: p2p messages / "
+              f"bytes, collectives, staged host bytes")
+        for key, c in rep["cases"].items():
+            if "p2p_messages" in c:
+                print(f"    {key:22s} {c['p2p_messages']:3d} / "
+                      f"{c['p2p_bytes']:6d} B, {c['collectives']:2d}, "
+                      f"{c['staged_bytes']:6d} B")
+        if bad or not rep["ok"] or rep["device"] != "cuda":
+            fail(f"rank sweep at {n} ranks: {bad}")
+        sweep[n] = {"cases": len(rep["cases"]), "wall_s": wall,
+                    "per_case": {k: {f: c.get(f) for f in (
+                        "p2p_messages", "p2p_bytes", "collectives",
+                        "staged_bytes")} for k, c in rep["cases"].items()}}
+    count = torch.cuda.device_count()
+    if count >= 2:
+        procs = run_ranks("repro_torch.runtime.selftest", 2, backend="nccl",
+                          device="cuda", timeout=DIST_SWEEP_TIMEOUT,
+                          extra_args=["--cases", "comm"])
+        rep = rank_reports(procs[:1], "RUNTIME_SELFTEST_JSON")[0]
+        if not rep["ok"]:
+            fail("rank sweep over NCCL")
+        sweep["nccl"] = {"cases": len(rep["cases"])}
+        print(f"  NCCL at 2 ranks: {len(rep['cases'])} cases bitwise")
+    else:
+        print(f"  NCCL not run: {count} visible GPU; NCCL refuses two ranks "
+              f"on one GPU, so the nccl backend needs a GPU per rank")
+
+    cfg_name = "Qwen2-1.5B"
+    print(f"  {cfg_name} full width, {IR_LAYERS} layers, batch {IR_BATCH}, "
+          f"seq {IR_SEQ}, dp2 x tp2 on {DIST_RANKS} ranks sharing the card "
+          f"(DistExecutor, gloo), {DIST_STEPS} steps; each rank rebuilds "
+          f"phase 5's weights and feeds from seed 0")
+    t0 = time.perf_counter()
+    procs = run_ranks(
+        "import sys, chip_smoke; sys.exit(chip_smoke.dist_rank_main())",
+        DIST_RANKS, backend="gloo", device="cuda", timeout=DIST_RUN_TIMEOUT,
+        extra_args=["--ref", ref_state])
+    run_s = time.perf_counter() - t0
+    ranks = rank_reports(procs, "DIST_RANK_JSON")
+    per_rank = [[s["launches"] for s in r["steps"]] for r in ranks]
+    launches = sum(r["launches"] for r in ranks)
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    for r in ranks:
+        parts = r["steps"][-1]
+        print(f"  rank {r['rank']} on {r['device']}: setup {r['setup_s']:.1f}"
+              f" s; steps " + ", ".join(f"{s['wall_s'] * 1e3:.0f}"
+                                        for s in r["steps"])
+              + f" ms; B1 launches a step {per_rank[r['rank']]} (the lowered"
+              f" graph dispatches {r['dispatches']}); peak memory "
+              f"{r['peak_gib']:.2f} GiB on the card; the Session's numpy "
+              f"weights, gradients, m and v {r['host_state_gib']:.2f} GiB on "
+              f"the host; step {DIST_STEPS}: pack "
+              f"{parts['pack'] * 1e3:.1f} ms, compute "
+              f"{parts['compute'] * 1e3:.1f} ms (B1 "
+              f"{parts['attention'] * 1e3:.2f}), comm "
+              f"{parts['comm'] * 1e3:.1f} ms (host staging "
+              f"{parts['staging'] * 1e3:.1f}, exchanges "
+              f"{parts['collective'] * 1e3:.1f}), fetch "
+              f"{parts['fetch'] * 1e3:.1f} ms, host AdamW "
+              f"{parts['adamw_s'] * 1e3:.1f} ms; comm over the run "
+              f"{r['comm']['p2p_messages']} messages, "
+              f"{r['comm']['p2p_bytes'] / 1e6:.1f} MB, "
+              f"{r['comm']['collectives']} collectives, "
+              f"{r['comm']['staged_bytes'] / 1e6:.1f} MB staged; fetch "
+              f"{r['fetch']['staged_bytes'] / 1e6:.1f} MB staged")
+    want = DIST_RANKS * IR_LAYERS * DIST_STEPS
+    if launches != want or any(p != [IR_LAYERS] * DIST_STEPS
+                               for p in per_rank) \
+            or any(r["plain_dispatches"] for r in ranks):
+        fail(f"rank path: B1 launches {per_rank}, expected {IR_LAYERS} a "
+             f"step on every rank ({want} in all)")
+    if any([s["loss"] for s in r["steps"]] != losses for r in ranks):
+        fail("rank path: the ranks' losses differ")
+    lrel = [abs(a - b) / abs(b) for a, b in zip(losses, ir_losses)]
+    limits = {"weights": TRAIN_PARAM_NORMWISE, "m": TRAIN_STATE_NORMWISE,
+              "v": TRAIN_STATE_NORMWISE}
+    worst = ranks[0]["normwise"]
+    print(f"  losses {losses} vs phase 5's {list(ir_losses)} (rel "
+          + ", ".join(f"{x:.1e}" for x in lrel) + f"; rtol {LOSS_RTOL:.0e})"
+          f"; after step {DIST_STEPS} against phase 5's run (normwise; key "
+          f"biases' m and v left out): " + ", ".join(
+              f"{k} {e:.2e} ({n}; limit {limits[k]:.0e})"
+              for k, (e, n) in worst.items())
+          + f"; {'bitwise' if ranks[0]['bitwise'] else 'not bitwise'} "
+          f"(compare {ranks[0]['compare_s']:.1f} s); ranks' run "
+          f"{run_s:.1f} s")
+    if max(lrel) > LOSS_RTOL or \
+            any(e > limits[k] for k, (e, _) in worst.items()):
+        fail("rank path: drifted from phase 5's run")
+    # B1 at this path's shape: each rank's q is its own (2, 6, 512, 128)
+    shape = (f"B{IR_BATCH // 2} H6 K1 S{IR_SEQ} D128 causal fp32 (graph-IR "
+             f"Qwen2-1.5B dp2 x tp2 on {DIST_RANKS} ranks sharing the card: "
+             f"one rank's row)")
+    timing = b1_at_shape(torch, fa, ref, shape, IR_BATCH // 2, 6, 1,
+                         IR_SEQ, 128)
+    timing["launches"] = launches
+    t_phase = time.perf_counter() - t_phase
+    print(f"  phase 10: {t_phase:.1f} s")
+    return timing, {"sweep": sweep, "ranks": ranks, "losses": losses,
+                    "loss_rel": lrel, "run_s": run_s, "phase_s": t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -2401,6 +2700,9 @@ def main() -> int:
             total[k] += n
     elastic = phase_elastic(torch, fa, ir_run)
     total["flash"] += elastic["launches"]
+    ref_dir = tempfile.TemporaryDirectory(prefix="phase5-")
+    ref_state = dist_reference(ir_run, ref_dir.name)
+    ir_losses = ir_run["losses"]
     del ir_run
     pp_b1, pipeline = phase_async(torch, fa, ref)
     total["flash"] += pp_b1["launches"]
@@ -2408,6 +2710,9 @@ def main() -> int:
     for run in fams.values():
         for k, n in run["launches"].items():
             total[k] += n
+    with ref_dir:
+        dist_b1, ranks = phase_dist(torch, fa, ref, ref_state, ir_losses)
+    total["flash"] += dist_b1["launches"]
 
     def training(kind):
         """Each training config's launches a step and plain recompute."""
@@ -2450,7 +2755,8 @@ def main() -> int:
         {"shape": "B4 H128 K128 S512 D192/128 causal bf16 (tensor cores)",
          "launches": 0, **fa_t[(192, "bfloat16")]},
         *({**fam_b1[arch], "launches": fams[arch]["launches"]["flash"]}
-          for arch in fam_b1)]
+          for arch in fam_b1),
+        dist_b1]
     kernels = [
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:114", total["flash"],
@@ -2475,6 +2781,7 @@ def main() -> int:
     print("elastic: " + json.dumps(elastic))
     print("pipeline: " + json.dumps(pipeline))
     print("families: " + json.dumps({"runs": fams, "phase_s": fam_s}))
+    print("ranks: " + json.dumps(ranks))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

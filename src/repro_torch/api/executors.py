@@ -1,8 +1,9 @@
 """Pluggable executors: run a CompiledPlan's per-device ExecItems.
 
 The :class:`Executor` protocol is the seam between planning and
-execution.  Three implementations ship (the third, the per-stage
-``AsyncExecutor``, lives in ``runtime.async_program``):
+execution.  Four implementations ship (the per-stage ``AsyncExecutor``
+lives in ``runtime.async_program``; :class:`DistExecutor` runs each
+logical device on its own ``torch.distributed`` rank):
 
 * :class:`SimulatorExecutor` — interprets the specialized per-device
   programs with numpy over the virtual-device simulator
@@ -305,25 +306,29 @@ class TorchExecutor:
         self._cache: "weakref.WeakKeyDictionary[CompiledPlan, dict]" = \
             weakref.WeakKeyDictionary()
 
+    def _lower(self, compiled: CompiledPlan, fetches: list[str] | None,
+               num_microbatches: int):
+        from repro_torch.runtime.program import LoweredGraph
+        return LoweredGraph(compiled.graph, compiled.strategy_index,
+                            device=self.device,
+                            shape_env=compiled.shape_env,
+                            topology=compiled.topology, fetches=fetches,
+                            num_microbatches=num_microbatches,
+                            times=self.times)
+
     def lowered(self, compiled: CompiledPlan,
                 fetches: Sequence[str] | None = None,
                 num_microbatches: int = 1):
-        """The (cached) LoweredGraph for this plan + fetch list."""
-        from repro_torch.runtime.program import LoweredGraph
+        """The (cached) lowered graph for this plan + fetch list."""
         per_plan = self._cache.get(compiled)
         if per_plan is None:
             per_plan = self._cache[compiled] = {}
         key = (tuple(fetches) if fetches else None, num_microbatches)
         lw = per_plan.get(key)
         if lw is None:
-            lw = LoweredGraph(compiled.graph, compiled.strategy_index,
-                              device=self.device,
-                              shape_env=compiled.shape_env,
-                              topology=compiled.topology,
-                              fetches=list(fetches) if fetches else None,
-                              num_microbatches=num_microbatches,
-                              times=self.times)
-            per_plan[key] = lw
+            lw = per_plan[key] = self._lower(
+                compiled, list(fetches) if fetches else None,
+                num_microbatches)
         return lw
 
     def run(self, compiled: CompiledPlan,
@@ -351,17 +356,67 @@ class TorchExecutor:
         return lw.run_microbatches(list(states))
 
 
+class DistExecutor(TorchExecutor):
+    """Execution across ``torch.distributed`` ranks, each logical device on
+    its own rank (``runtime.dist_program.RankLoweredGraph``): the
+    counterpart of the reference's ``JaxExecutor``.  Every rank runs the
+    same ``Session`` from the same seed and calls :meth:`run` with the
+    same state; each rank computes and moves only its own shards, and
+    every rank gets every fetched shard back, so the Session's host state
+    (weights, AdamW m and v) stays identical on every rank.
+
+    ``mesh`` is a ``launch.mesh.RankMesh``; ``None`` makes one over the
+    world group (``make_runtime_mesh(device=device)``), initializing it
+    from the environment ``runtime.harness.run_ranks`` gives each rank.
+    ``device=None`` means ``cuda``, raising where there is no GPU; with a
+    mesh given, the device is the mesh's.  Comm ops reduce exactly (the
+    simulator's float64 fold in ``srcs`` order).  Caching, :meth:`run`
+    and :meth:`run_schedule` are ``TorchExecutor``'s; every rank must
+    ask for the same lowered graphs in the same order (comm plans make
+    their subgroups when lowered).  ``times`` accumulates the host-clock
+    parts of every run (``RankRunTimes``)."""
+
+    name = "dist"
+
+    def __init__(self, mesh=None, *, device=None):
+        import torch
+
+        from repro_torch.runtime.dist_program import RankRunTimes
+        if mesh is None:
+            from repro_torch.device import resolve_device
+            from repro_torch.launch.mesh import make_runtime_mesh
+            resolve_device(device)       # no GPU and no "cpu": raise first
+            mesh = make_runtime_mesh(device=device)
+        elif device is not None and \
+                mesh.device.type != torch.device(device).type:
+            raise ValueError(f"device {device!r} disagrees with the mesh's "
+                             f"{mesh.device}")
+        super().__init__(mesh.device)
+        self.mesh = mesh
+        self.times = RankRunTimes()
+
+    def _lower(self, compiled: CompiledPlan, fetches: list[str] | None,
+               num_microbatches: int):
+        from repro_torch.runtime.dist_program import RankLoweredGraph
+        return RankLoweredGraph(compiled.graph, compiled.strategy_index,
+                                mesh=self.mesh,
+                                shape_env=compiled.shape_env,
+                                topology=compiled.topology, fetches=fetches,
+                                num_microbatches=num_microbatches,
+                                times=self.times)
+
+
 def _executor_registry() -> dict:
     # AsyncExecutor lives in runtime/ (it is a lowering, like
     # LoweredGraph)
     from repro_torch.runtime.async_program import AsyncExecutor
     return {"sim": SimulatorExecutor, "torch": TorchExecutor,
-            "async": AsyncExecutor}
+            "async": AsyncExecutor, "dist": DistExecutor}
 
 
 def get_executor(name: str, **kwargs) -> Executor:
-    """Executor registry: ``"sim"``, ``"torch"`` or ``"async"`` (the
-    string form used by CLI flags).  Unknown names raise ``ValueError``
+    """Executor registry: ``"sim"``, ``"torch"``, ``"async"`` or
+    ``"dist"`` (the string form used by CLI flags).  Unknown names raise ``ValueError``
     listing the valid options; unknown options raise ``TypeError`` instead
     of vanishing silently."""
     registry = _executor_registry()

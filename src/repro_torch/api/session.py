@@ -26,7 +26,7 @@ from repro_torch.core.switching import SwitchReport
 from repro_torch.core.switching import switch as core_switch
 from repro_torch.core.topology import Topology
 
-from .executors import Executor, TorchExecutor
+from .executors import DistExecutor, Executor, TorchExecutor
 from .program import CompiledPlan, Program
 from .strategy import Strategy
 
@@ -427,7 +427,8 @@ class Session:
         Weights and AdamW m/v migrate through the fused-BSR plan on the
         session's executor: a :class:`TorchExecutor` session moves them on
         its device (``backend="torch"``, the parts' times on
-        ``execute_seconds``), any other on the numpy simulator."""
+        ``execute_seconds``), a :class:`DistExecutor` session across its
+        ranks (``backend="dist"``), any other on the numpy simulator."""
         t_wall = time.perf_counter()
         if isinstance(strategy, Strategy):
             dst = self.program.add_strategy(strategy)
@@ -450,8 +451,13 @@ class Session:
                                 wall_seconds=time.perf_counter() - t_wall,
                                 src_name=names[src], dst_name=names[dst])
         # a TorchExecutor session migrates on its own device through the
-        # torch comm lowering; any other executor on the numpy simulator
-        if isinstance(self.executor, TorchExecutor):
+        # torch comm lowering, a DistExecutor session across its ranks;
+        # any other executor on the numpy simulator
+        mesh = None
+        if isinstance(self.executor, DistExecutor):
+            backend, device = "dist", None
+            mesh = self.executor.mesh
+        elif isinstance(self.executor, TorchExecutor):
             backend, device = "torch", self.executor.device
         else:
             backend, device = "sim", None
@@ -461,7 +467,7 @@ class Session:
             self.program.strategies[dst].topology
         outcome = core_switch(
             self.weights, self.program.graph, src, dst, self.shape_env,
-            topology, backend=backend, device=device)
+            topology, backend=backend, device=device, mesh=mesh)
         if self.opt_state is not None:
             # optimizer m/v mirror the weight annotations: migrate them
             # through the same fused-BSR plan so training resumes
@@ -471,7 +477,7 @@ class Session:
                 self.opt_state[key] = execute_switch(
                     self.opt_state[key], self.program.graph, src, dst,
                     self.shape_env, topology, backend=backend, device=device,
-                    report=outcome.report)
+                    mesh=mesh, report=outcome.report)
         self.weights = outcome.weights
         self.plan = self.program.compile(dst, shape_env=self.shape_env,
                                          topology=self.topology)

@@ -8,9 +8,10 @@ heuristics + per-pair message fusion, load-balanced across the whole
 transition.
 
 ``switch`` also executes the plan, on the virtual-device simulator
-(``backend="sim"``) or on the torch comm lowering (``backend="torch"``:
-every virtual device one row of a stacked buffer on one torch device), so
-the weight migration is verified numerically, and reports the statistics
+(``backend="sim"``), on the torch comm lowering (``backend="torch"``:
+every virtual device one row of a stacked buffer on one torch device) or
+across ``torch.distributed`` ranks (``backend="dist"``), so the weight
+migration is verified numerically, and reports the statistics
 the paper uses in Fig 18 / Table 2 (per-rank volume over fast/slow links,
 message counts, estimated transition time).
 """
@@ -111,7 +112,7 @@ def execute_switch(weights: dict[str, ShardedTensor],
                    graph: Graph, src_strategy: int, dst_strategy: int,
                    shape_env: dict[str, int] | None = None,
                    topology: Topology | None = None, *,
-                   backend: str = "sim", device=None,
+                   backend: str = "sim", device=None, mesh=None,
                    report: SwitchReport | None = None
                    ) -> dict[str, ShardedTensor]:
     """Migrate weight shards to the destination strategy.
@@ -121,17 +122,20 @@ def execute_switch(weights: dict[str, ShardedTensor],
     numerically exact) or on the torch comm lowering (``backend="torch"``:
     each tensor's ``switch:BSR`` plan runs as row moves on ``device``,
     ``None`` meaning ``cuda``; BSR moves copies only, so every shard is
-    bit for bit the simulator's).  The torch backend adds its parts' times
-    to ``report.execute_seconds``.  The reference's ``backend="jax"`` (the
-    messages as collective-permutes on JAX devices) has its counterpart
-    in ``"torch"`` and raises here."""
+    bit for bit the simulator's) or across ranks (``backend="dist"``: each
+    tensor's plan through ``runtime.backend.execute_plan`` on ``mesh``, a
+    ``launch.mesh.RankMesh``, every rank calling with the same weights and
+    getting every migrated shard back; the counterpart of the reference's
+    ``backend="jax"``).  The torch backend adds its parts' times to
+    ``report.execute_seconds``.  The reference's ``backend="jax"`` raises
+    here."""
     from .symbolic import bind_shape
     if backend == "jax":
         raise NotImplementedError(
             "switch backend 'jax' is the JAX package's; the port migrates "
-            "on the torch comm lowering with backend='torch' (or on the "
-            "simulator with backend='sim')")
-    if backend not in ("sim", "torch"):
+            "across ranks with backend='dist', on the torch comm lowering "
+            "with backend='torch', or on the simulator with backend='sim'")
+    if backend not in ("sim", "torch", "dist"):
         raise ValueError(f"unknown switch backend {backend!r}")
     if report is None:
         report = plan_switch(graph, src_strategy, dst_strategy, shape_env,
@@ -153,6 +157,10 @@ def execute_switch(weights: dict[str, ShardedTensor],
             parts = execute_plan(cp, weights[p.name].parts, shape, device,
                                  times=report.execute_seconds)
             out[p.name] = ShardedTensor(tuple(shape), dst, parts)
+        elif backend == "dist":
+            from repro_torch.runtime.backend import execute_plan
+            parts = execute_plan(cp, weights[p.name].parts, shape, mesh)
+            out[p.name] = ShardedTensor(tuple(shape), dst, parts)
         else:
             out[p.name] = apply_plan(weights[p.name], cp)
     return out
@@ -172,12 +180,12 @@ def switch(weights: dict[str, ShardedTensor],
            graph: Graph, src_strategy: int, dst_strategy: int,
            shape_env: dict[str, int] | None = None,
            topology: Topology | None = None, *,
-           backend: str = "sim", device=None) -> SwitchOutcome:
+           backend: str = "sim", device=None, mesh=None) -> SwitchOutcome:
     """Plan + execute the fused-BSR strategy switch, returning both the
     migrated weights and the planning/transfer report (paper §6.2) —
     what ``repro_torch.api.Session.switch`` composes.  Report statistics
-    are priced at each live weight's actual itemsize; ``backend`` and
-    ``device`` are :func:`execute_switch`'s."""
+    are priced at each live weight's actual itemsize; ``backend``,
+    ``device`` and ``mesh`` are :func:`execute_switch`'s."""
 
     def isz(name: str) -> int:
         st = weights.get(name)
@@ -189,5 +197,5 @@ def switch(weights: dict[str, ShardedTensor],
                          topology, mode="fused", itemsize=isz)
     new = execute_switch(weights, graph, src_strategy, dst_strategy,
                          shape_env, topology, backend=backend,
-                         device=device, report=report)
+                         device=device, mesh=mesh, report=report)
     return SwitchOutcome(new, report, src_strategy, dst_strategy)

@@ -90,6 +90,12 @@ class LoweringStats:
     compute_segments: int = 0       # live compute segments
     straightline_segments: int = 0  # of which one class over every row
     class_runs: int = 0             # class executions over all segments
+    # the rank path (``runtime.dist_lowering``), accumulated over its
+    # runs, this rank's share:
+    p2p_messages: int = 0   # point-to-point messages sent
+    p2p_bytes: int = 0      # their bytes
+    collectives: int = 0    # subgroup / world collectives joined
+    staged_bytes: int = 0   # bytes copied between the device and the host
 
     def merge(self, other: "LoweringStats") -> None:
         for name in self.__dataclass_fields__:

@@ -608,3 +608,28 @@ def test_async_stream_hazard_stress(cuda):
         got = ex.run_schedule(tplan, sched, states, fetches)
         del junk
         _assert_runs_equal(first, got, f"run {i + 2}")
+
+
+def test_rank_sweep_sharing_the_card_matches_the_simulator(cuda):
+    """The rank selftest's comm sweep (every CommStep kind, exact and
+    integer shards, round trips) at 2 ranks sharing the card over gloo:
+    each rank holds every case bitwise against the port's simulator, and
+    every payload was staged through host memory."""
+    import json
+
+    from repro_torch.runtime.harness import run_ranks
+
+    procs = run_ranks("repro_torch.runtime.selftest", 2, backend="gloo",
+                      device="cuda", timeout=180,
+                      extra_args=["--cases", "comm"])
+    line = next(x for x in procs[0].stdout.splitlines()
+                if x.startswith("RUNTIME_SELFTEST_JSON "))
+    report = json.loads(line.split(" ", 1)[1])
+    assert report["ok"], {k: c.get("error")
+                          for k, c in report["cases"].items()
+                          if not c["ok"]}
+    assert (report["device"], report["ranks"]) == ("cuda", 2)
+    assert len(report["cases"]) == 21
+    moved = [c for c in report["cases"].values()
+             if c.get("p2p_messages") or c.get("collectives")]
+    assert moved and all(c["staged_bytes"] > 0 for c in moved)

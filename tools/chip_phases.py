@@ -12,6 +12,9 @@ Phases, in the order given:
 * ``ssd`` and ``rglru``: phase 3's SSD and RG-LRU scan cases.
 * ``families``: phase 9, DeepSeek-V2, Grok-1, Qwen2-VL and Whisper
   served at published widths.
+* ``dist``: phase 10, ranks sharing the card: the rank selftest's comm
+  sweep, then phase 5's program on 4 ranks against phase 5's run (which
+  it runs first, as ``chip_smoke.py`` does).
 
 Each phase prints what it prints in ``chip_smoke.py`` and then one line
 ``<phase>: {json}``.  A phase that fails exits non-zero, as in
@@ -26,7 +29,19 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("attention", "ssd", "rglru", "families")
+PHASES = ("attention", "ssd", "rglru", "families", "dist")
+
+
+def dist(torch, cs, fa, ref):
+    """Phase 5's run, its final state written for the ranks, then phase
+    10."""
+    import tempfile
+    _, ir_run = cs.phase_graph_ir(torch, fa, ref)
+    with tempfile.TemporaryDirectory(prefix="phase5-") as d:
+        ref_state = cs.dist_reference(ir_run, d)
+        losses = ir_run["losses"]
+        del ir_run
+        return cs.phase_dist(torch, fa, ref, ref_state, losses)
 
 
 def main(argv) -> int:
@@ -56,6 +71,7 @@ def main(argv) -> int:
         "ssd": lambda: cs.phase_ssd(torch, sk, ref, gen),
         "rglru": lambda: cs.phase_rglru(torch, rk, ref, gen),
         "families": lambda: cs.phase_families(torch, policy, fa, ref),
+        "dist": lambda: dist(torch, cs, fa, ref),
     }
     for name in names:
         t0 = time.perf_counter()
@@ -63,6 +79,9 @@ def main(argv) -> int:
         if name == "families":
             fams, b1, _ = out
             out = {"runs": fams, "b1": b1}
+        elif name == "dist":
+            b1, ranks = out
+            out = {"ranks": ranks, "b1": b1}
         else:
             worst, timing = out
             out = {"max_abs_err": worst,
