@@ -41,7 +41,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    three steps.  B1 must launch once per layer per step (the wrapper's
    count, against the lowered graph's layers x attention classes), step
    1's loss and every gradient must agree with the port's
-   ``SimulatorExecutor`` run in numpy on the host at the same size (loss
+   ``SimulatorExecutor`` run in numpy on the host at the same size (in a
+   child process that ``main`` starts after phase 2, so that its minutes
+   on the host run beside phases 3 and 4 on the card; loss
    rtol 1e-5, gradients atol 1e-6 and rtol 2e-4 as ``tests/test_archs.py``
    holds the graph IR, and each gradient's normwise relative error at most
    2e-4, the key biases' excepted: at the full vocabulary every gradient
@@ -128,21 +130,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain version, its bound and SDPA.
 10. ranks sharing the card (``torch.distributed`` over gloo, every
    payload staged through host memory; NCCL refuses two ranks on one GPU
-   and runs only where there is a GPU per rank).  (a) The rank selftest's
-   comm sweep (``python -m repro_torch.runtime.selftest --cases comm``
-   under ``runtime.harness.run_ranks``) at 2 and 4 ranks: every CommStep
-   kind on normal (exact) and integer (fast) shards, hsplits and the round
-   trips, bitwise the port's simulator in every rank; the messages,
-   collectives and staged bytes per case.  (b) Phase 5's program on 4
-   ranks through ``api.DistExecutor``, each rank rebuilding phase 5's
-   weights and feeds from seed 0, 3 steps: B1 twice a step on every rank
-   (24 in all) at q (2, 6, 512, 128), the losses within rtol 1e-5 of phase
-   5's and the weights, m and v after step 3 within phase 7's limits of
-   phase 5's final state (which ``main`` writes to a temporary directory
-   after phase 7), and whether they came out bitwise; each rank's step
-   split (pack, compute, comm into host staging and exchanges, fetch,
-   AdamW), traffic and peak memory; then B1 at a rank's shape against its
-   plain version, its bound and SDPA.
+   and runs only where there is a GPU per rank).  (a) The rank selftest
+   (``python -m repro_torch.runtime.selftest`` under
+   ``runtime.harness.run_ranks``): the comm cases at 2 ranks, the comm
+   and api cases at 4: every CommStep kind on normal (exact) and integer
+   (fast) shards, hsplits, the round trips, the grouped-reduce and fusion
+   tiers, the api sessions, pipelines and train steps (1F1B, GPipe,
+   interleaved, the hsize=2 gradient path), the switch and the three
+   elastic traces, bitwise the port's simulator in every rank; the
+   messages, collectives and staged bytes per case.  (b) Phase 5's
+   program on 4 ranks through ``api.DistExecutor``, each rank rebuilding
+   phase 5's weights and feeds from seed 0, 3 steps: B1 twice a step on
+   every rank (24 in all) at q (2, 6, 512, 128), the losses within rtol
+   1e-5 of phase 5's and the weights, m and v after step 3 within phase
+   7's limits of phase 5's final state (which ``main`` writes to a
+   temporary directory after phase 7), and whether they came out bitwise.
+   (c) In the same launch, the same blocks under the hsize=2 dp2|tp2
+   strategy (``runtime.selftest.hetero_block_strategy``: dp2 on devices
+   0-1, tp2 on 2-3, each on half the batch), 3 steps: the gradient plans
+   (a bottom AR, then a top SplitAR), B1 twice a step on every rank at q
+   (1, 12, 512, 128) on ranks 0-1 and (2, 6, 512, 128) on ranks 2-3, the
+   losses and every part of the state against the box it covers of phase
+   5's global value (formed once phase 5's replicas agree bitwise), under
+   (b)'s limits.  For (b) and (c) each rank's step split (pack, compute,
+   comm into host staging and exchanges, fetch, AdamW), traffic, plan
+   tiers and peak memory; then B1 at both rank shapes against its plain
+   version, its bound and SDPA.
 11. the training line, the elastic line, the pipeline line, the families
    line, the ranks line, the kernels line, then the card line, then the
    result line.
@@ -251,13 +264,14 @@ FAMILIES = (("deepseek-v2-236b", 3, 512), ("grok-1-314b", 2, 512),
 #: top-k, or whether capacity keeps it) may differ between the kernels and
 #: the plain versions: they differ by ~1e-6, which flips a near-tie
 ROUTING_FLIP_MAX = 0.01
-#: phase 10: ranks sharing the card over gloo: the world sizes of the kind
-#: sweep, then phase 5's program on DIST_RANKS ranks (dp2 x tp2) for
-#: DIST_STEPS steps, each rank's B1 launches a step (one a layer), and the
-#: ranks' time limits (s)
-DIST_SWEEP = (2, 4)
+#: phase 10: ranks sharing the card over gloo: the world sizes of the rank
+#: selftest and its case groups at each, then phase 5's program on
+#: DIST_RANKS ranks for DIST_STEPS steps under (b) dp2 x tp2 and (c) the
+#: hsize=2 dp2|tp2 strategy, each rank's B1 launches a step (one a layer),
+#: and the ranks' time limits (s)
+DIST_SWEEP = {2: "comm", 4: "comm,api"}
 DIST_RANKS, DIST_STEPS = 4, 3
-DIST_SWEEP_TIMEOUT, DIST_RUN_TIMEOUT = 120, 420
+DIST_SWEEP_TIMEOUT, DIST_RUN_TIMEOUT = 180, 660
 
 
 def fail(msg: str):
@@ -976,12 +990,88 @@ def b1_at_shape(torch, fa, ref, shape, b, h, kh, seq, hd):
                 bound_ms=bnd, bound_by=by, max_abs_err=err)
 
 
-def phase_graph_ir(torch, fa, ref):
+#: threads of the phase-5 reference's child process, which runs beside
+#: phases 3 and 4 on the 8-core host
+SIM_THREADS = 4
+
+
+def simulator_reference_main(path) -> int:
+    """Phase 5's reference in a child process: the port's
+    ``SimulatorExecutor`` (numpy, on the host) takes step 1 of phase 5's
+    program from seed 0; its loss and every gradient go to ``path``
+    (``.npz``).  Touches no GPU."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.models.graph_block import block_program
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    prog = block_program(cfg, batch=IR_BATCH, seq=IR_SEQ, n_layers=IR_LAYERS,
+                         dp=2, tp=2, pp=1)
+    rng = np.random.default_rng(0)
+    feeds = block_feeds(cfg, rng, IR_BATCH, IR_SEQ)
+    ws = block_weights(prog, rng)
+    sim = api.Session(prog, 0, executor=api.SimulatorExecutor())
+    sim.load(ws)
+    want = sim.train_step(dict(feeds))
+    np.savez(path, loss=np.float64(want.loss),
+             seconds=np.float64(time.perf_counter() - t0),
+             **{f"grad|{n}": want.grad_value(n) for n in ws})
+    return 0
+
+
+class SimulatorReference:
+    """Phase 5's reference step (:func:`simulator_reference_main`) in a
+    child process started early, so that its minutes of host numpy run
+    beside the card's phases 3 and 4; :meth:`result` waits for it.  The
+    child is killed if the script ends first."""
+
+    def __init__(self, out_dir):
+        import atexit
+        import os
+        self.path = Path(out_dir) / "simulator_step1.npz"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS=str(SIM_THREADS),
+                   OPENBLAS_NUM_THREADS=str(SIM_THREADS),
+                   MKL_NUM_THREADS=str(SIM_THREADS))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.simulator_reference_main(sys.argv[1]))",
+             str(self.path)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self):
+        """(loss, {name: gradient}, the child's seconds, seconds waited)."""
+        import numpy as np
+        t0 = time.perf_counter()
+        out, _ = self.proc.communicate()
+        waited = time.perf_counter() - t0
+        if self.proc.returncode != 0:
+            fail(f"phase 5's SimulatorExecutor reference exited with "
+                 f"{self.proc.returncode}:\n{out[-3000:]}")
+        with np.load(self.path) as z:
+            grads = {k.split("|", 1)[1]: z[k] for k in z.files
+                     if k.startswith("grad|")}
+            loss, secs = float(z["loss"]), float(z["seconds"])
+        self.path.unlink()
+        return loss, grads, secs, waited
+
+
+def phase_graph_ir(torch, fa, ref, sim_ref):
     """Graph-IR training on ``TorchExecutor``: full-width Qwen2-1.5B
-    blocks under dp2 x tp2, then reduced Llama under tp2 x pp2 with two
-    microbatches.  Returns B1's launches on this path and its timings at
-    the path's shape, and the Qwen2 run (config, feeds, initial weights,
-    losses, final weights and AdamW m/v) for phase 7."""
+    blocks under dp2 x tp2, step 1 against ``sim_ref`` (a
+    :class:`SimulatorReference`), then reduced Llama under tp2 x pp2 with
+    two microbatches.  Returns B1's launches on this path and its timings
+    at the path's shape, and the Qwen2 run (config, feeds, initial
+    weights, losses, final weights and AdamW m/v) for phase 7."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1003,16 +1093,14 @@ def phase_graph_ir(torch, fa, ref):
     print(f"  {sum(w.size for w in ws.values()) / 1e6:.1f} M parameters, "
           f"random from seed 0 (numpy)")
 
-    # the reference: the port's SimulatorExecutor, in numpy on the host
-    t0 = time.perf_counter()
-    sim = api.Session(prog, 0, executor=api.SimulatorExecutor())
-    sim.load(ws)
-    want = sim.train_step(dict(feeds))
-    want_loss = want.loss
-    want_grads = {n: want.grad_value(n) for n in ws}
-    print(f"  SimulatorExecutor step 1 on the host: "
-          f"{time.perf_counter() - t0:.1f} s, loss {want_loss:.9e}")
-    del sim, want
+    # the reference: the port's SimulatorExecutor, in numpy on the host,
+    # in the child process started after phase 2
+    want_loss, want_grads, sim_s, waited = sim_ref.result()
+    if set(want_grads) != set(ws):
+        fail(f"phase 5's reference has gradients {sorted(want_grads)}")
+    print(f"  SimulatorExecutor step 1 on the host (a child process with "
+          f"{SIM_THREADS} threads beside phases 3-4): {sim_s:.1f} s, "
+          f"waited for {waited:.1f} s here; loss {want_loss:.9e}")
 
     ex = api.TorchExecutor()
     sess = api.Session(prog, 0, executor=ex)
@@ -2392,13 +2480,134 @@ def dist_reference(ir_run, out_dir) -> str:
     return str(out)
 
 
+def host_rss_gib() -> float:
+    """This process's resident host memory now (GiB, ``VmRSS``)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def trim_host() -> float:
+    """Collect garbage and return the freed heap to the system; returns
+    the resident host memory left (GiB)."""
+    import ctypes
+    import gc
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    return host_rss_gib()
+
+
+class HostPeak:
+    """The largest resident host memory of this process while the block
+    runs (GiB), sampled every 0.2 s by a thread."""
+
+    def __enter__(self):
+        import threading
+        self.peak = host_rss_gib()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.2):
+                self.peak = max(self.peak, host_rss_gib())
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss_gib())
+
+
+def rank_steps(torch, fa, mesh, prog, cfg):
+    """One rank's ``DIST_STEPS`` train steps of ``prog`` on
+    ``DistExecutor``, from phase 5's weights and feeds (seed 0).  Returns
+    the Session and this run's numbers: each step's loss, wall and split,
+    B1's launches and the q and k shapes it took, the
+    lowered graph's dispatches, traffic, the card's peak, the Session's
+    host state and the process's peak host memory.  Each step's result is
+    dropped before the next step runs: four ranks' host memory is what
+    bounds this run."""
+    import numpy as np
+
+    from repro_torch import api
+    launch = fa.flash_attention
+    shapes = set()
+
+    def recorded(q, k, v, **kw):     # the wrapper counts the launch
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return launch(q, k, v, **kw)
+    fa.flash_attention = recorded
+    try:
+        with HostPeak() as host:
+            t0 = time.perf_counter()
+            rng = np.random.default_rng(0)
+            feeds = block_feeds(cfg, rng, IR_BATCH, IR_SEQ)
+            ws = block_weights(prog, rng)
+            ex = api.DistExecutor(mesh)
+            sess = api.Session(prog, 0, executor=ex)
+            sess.load(ws)
+            del ws
+            setup_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            ex.times.sync = True
+            fa.launches = 0
+            for _ in range(DIST_STEPS):
+                before = fa.launches
+                ex.times.reset()
+                t0 = time.perf_counter()
+                r = sess.train_step(dict(feeds))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                steps.append(dict(loss=r.loss, wall_s=wall,
+                                  launches=fa.launches - before,
+                                  adamw_s=r.update_seconds,
+                                  **ex.times.as_dict()))
+                grad_bytes = sum(p.nbytes for st in r.grads.values()
+                                 for p in st.parts.values())
+                del r
+    finally:
+        fa.flash_attention = launch
+    tplan = prog.compile_train(0)
+    lw = ex.lowered(tplan, [tplan.loss_name] + [
+        tplan.grad_map[t.name] for t in tplan.graph.parameters()])
+    comm, fetch = lw.comm_stats, lw.fetch_stats
+    out = dict(setup_s=setup_s, steps=steps, launches=fa.launches,
+               b1_shapes=sorted(shapes),
+               dispatches=lw.stats.kernel_dispatches,
+               plain_dispatches=lw.stats.ref_dispatches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               host_state_gib=(grad_bytes + sum(
+                   p.nbytes for tree in (sess.weights, sess.opt_state["m"],
+                                         sess.opt_state["v"])
+                   for st in tree.values() for p in st.parts.values()))
+               / 2**30, host_peak_gib=host.peak,
+               comm={k: getattr(comm, k) for k in (
+                   "p2p_messages", "p2p_bytes", "collectives",
+                   "staged_bytes", "uniform_reduce_stages",
+                   "uniform_copy_stages", "stages", "copy_pairs",
+                   "permute_rounds", "reduce_groups", "grouped_reduces")},
+               fetch={k: getattr(fetch, k) for k in (
+                   "collectives", "staged_bytes")})
+    return sess, out
+
+
 def dist_rank_main(argv=None) -> int:
-    """One rank of phase 10 (b), started by ``runtime.harness.run_ranks``:
-    phase 5's program, weights and feeds from seed 0, ``DIST_STEPS`` steps
-    on ``DistExecutor``; prints one ``DIST_RANK_JSON {...}`` line.  Rank 0
+    """One rank of phase 10 (b) and (c), started by
+    ``runtime.harness.run_ranks``.  (b): phase 5's program, weights and
+    feeds from seed 0, ``DIST_STEPS`` steps on ``DistExecutor``; rank 0
     holds its final weights, m and v against phase 5's (``--ref``), part
-    by part (every replica), under the same annotations."""
+    by part (every replica), under the same annotations.  (c): (b)'s
+    Session dropped and its card memory freed, the same blocks under the
+    hsize=2 ``selftest.hetero_block_strategy`` (dp2 on devices 0-1, tp2 on
+    2-3), ``DIST_STEPS`` steps; rank 0 holds every part of its final
+    state against the box it covers in phase 5's global value, formed from
+    phase 5's parts once their replicas agree bitwise.  Prints one
+    ``DIST_RANK_JSON {...}`` line."""
     import argparse
+    import gc
 
     import numpy as np
     import torch
@@ -2406,69 +2615,36 @@ def dist_rank_main(argv=None) -> int:
 
     from repro_torch import api
     from repro_torch.configs import get_config
+    from repro_torch.core.comm_resolve import resolve
+    from repro_torch.core.plan import box_shape
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_runtime_mesh
-    from repro_torch.models.graph_block import block_program
+    from repro_torch.models.graph_block import block_program, build_block
+    from repro_torch.runtime.selftest import (grad_plan_kinds,
+                                              hetero_block_strategy)
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", required=True)
     ap.add_argument("--device", required=True)
     ap.add_argument("--ref", required=True)
     args = ap.parse_args(argv)
-    t0 = time.perf_counter()
     mesh = make_runtime_mesh(backend=args.backend, device=args.device)
     cfg = get_config("qwen2-1.5b")
+    ref = Path(args.ref)
+    names = json.loads((ref / "names.json").read_text()) \
+        if mesh.rank == 0 else {}
+    out = dict(rank=mesh.rank, device=str(mesh.device))
+
+    # (b) phase 5's program: dp2 x tp2
     prog = block_program(cfg, batch=IR_BATCH, seq=IR_SEQ, n_layers=IR_LAYERS,
                          dp=2, tp=2, pp=1)
-    rng = np.random.default_rng(0)
-    feeds = block_feeds(cfg, rng, IR_BATCH, IR_SEQ)
-    ws = block_weights(prog, rng)
-    ex = api.DistExecutor(mesh)
-    sess = api.Session(prog, 0, executor=ex)
-    sess.load(ws)
-    del ws
-    setup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    steps = []
-    ex.times.sync = True
-    fa.launches = 0
-    for _ in range(DIST_STEPS):
-        before = fa.launches
-        ex.times.reset()
-        t0 = time.perf_counter()
-        r = sess.train_step(dict(feeds))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        steps.append(dict(loss=r.loss, wall_s=wall,
-                          launches=fa.launches - before,
-                          adamw_s=r.update_seconds, **ex.times.as_dict()))
-    launches = fa.launches
-    tplan = prog.compile_train(0)
-    lw = ex.lowered(tplan, [tplan.loss_name] + [
-        tplan.grad_map[t.name] for t in tplan.graph.parameters()])
-    comm, fetch = lw.comm_stats, lw.fetch_stats
-    out = dict(rank=mesh.rank, device=str(mesh.device), setup_s=setup_s,
-               steps=steps, launches=launches,
-               dispatches=lw.stats.kernel_dispatches,
-               plain_dispatches=lw.stats.ref_dispatches,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               host_state_gib=sum(
-                   p.nbytes for tree in (sess.weights, r.grads,
-                                         sess.opt_state["m"],
-                                         sess.opt_state["v"])
-                   for st in tree.values() for p in st.parts.values())
-               / 2**30,
-               comm={k: getattr(comm, k) for k in (
-                   "p2p_messages", "p2p_bytes", "collectives",
-                   "staged_bytes")},
-               fetch={k: getattr(fetch, k) for k in (
-                   "collectives", "staged_bytes")})
+    sess, out["b"] = rank_steps(torch, fa, mesh, prog, cfg)
+    steps = out["b"]["steps"]
+    annots5 = {name: st.annot for name, st in sess.weights.items()}
     if mesh.rank == 0:
         # every leaf's parts in device order on both sides, as phase 7
         # compares: a replica that drifted from its twin counts
         t0 = time.perf_counter()
-        ref = Path(args.ref)
-        names = json.loads((ref / "names.json").read_text())
         bitwise = [np.array_equal([s["loss"] for s in steps],
                                   np.load(ref / "losses.npy"))]
 
@@ -2491,8 +2667,71 @@ def dist_rank_main(argv=None) -> int:
             worst[key] = worst_normwise(
                 pairs(key, got), skip={n for n in got if key != "weights"
                                        and n.endswith("/bk")})
-        out.update(normwise=worst, bitwise=all(bitwise),
-                   compare_s=time.perf_counter() - t0)
+        out["b"].update(normwise=worst, bitwise=all(bitwise),
+                        compare_s=time.perf_counter() - t0)
+    del sess, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"]["host_left_gib"] = trim_host()
+
+    # (c) the same blocks under hsize=2: dp2 on [0, 1], tp2 on [2, 3]
+    g = api.Graph()
+    build_block(g, cfg, batch=IR_BATCH, seq=IR_SEQ, n_layers=IR_LAYERS)
+    prog = api.Program(g, [hetero_block_strategy(g)])
+    kinds = grad_plan_kinds(prog.compile_train(0), resolve)
+    sess, out["c"] = rank_steps(torch, fa, mesh, prog, cfg)
+    out["c"]["grad_plans"] = {
+        kind: sorted(w for w, k in kinds.items() if k[2] == kind)
+        for kind in sorted({k[2] for k in kinds.values()})}
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        replicas_bitwise, bitwise = [], []
+
+        def global_pairs(key, got):
+            """(name, every part of the hetero state in device order, the
+            boxes they cover of phase 5's global value)."""
+            for name, st in got.items():
+                annot, shape = annots5[name], st.shape
+                path, want_annot = names[f"{key}|{name}"]
+                if repr(annot) != want_annot:
+                    fail(f"rank path: phase 5's {key} {name} under "
+                         f"{want_annot}, not {annot}")
+                flat = torch.from_numpy(np.load(
+                    ref / path, mmap_mode="r")[...]).cuda()
+                full = torch.empty(shape, dtype=flat.dtype, device=flat.device)
+                seen, at = {}, 0
+                for dev in sorted(annot.devices):
+                    box = annot.device_box(dev, shape)
+                    n = int(np.prod(box_shape(box)))
+                    part = flat[at:at + n].view(box_shape(box))
+                    at += n
+                    if box in seen:
+                        replicas_bitwise.append(torch.equal(part, seen[box]))
+                        if not replicas_bitwise[-1]:
+                            fail(f"rank path: phase 5's {key} {name} dev "
+                                 f"{dev} differs from its replica")
+                    else:
+                        seen[box] = part
+                        full[tuple(slice(a, b) for a, b in box)] = part
+                del flat, seen
+                have = torch.from_numpy(flat_parts(st)).cuda()
+                want = torch.cat([
+                    full[tuple(slice(a, b) for a, b in
+                               st.annot.device_box(dev, shape))].reshape(-1)
+                    for dev in sorted(st.parts)])
+                del full
+                bitwise.append(torch.equal(have, want))
+                yield name, have, want
+
+        worst = {}
+        for key in ("weights", "m", "v"):
+            got = sess.weights if key == "weights" else sess.opt_state[key]
+            worst[key] = worst_normwise(
+                global_pairs(key, got), skip={n for n in got if key !=
+                                              "weights" and n.endswith("/bk")})
+        out["c"].update(normwise=worst, bitwise=all(bitwise),
+                        replicas_checked=len(replicas_bitwise),
+                        compare_s=time.perf_counter() - t0)
     print("DIST_RANK_JSON " + json.dumps(out), flush=True)
     dist.destroy_process_group()
     return 0
@@ -2509,47 +2748,147 @@ def rank_reports(procs, tag) -> list[dict]:
     return out
 
 
+def print_rank_run(r, run):
+    """One rank's line for run ``run`` (``"b"`` or ``"c"``)."""
+    x = r[run]
+    parts = x["steps"][-1]
+    print(f"  ({run}) rank {r['rank']} on {r['device']}: setup "
+          f"{x['setup_s']:.1f} s; steps " + ", ".join(
+              f"{s['wall_s'] * 1e3:.0f}" for s in x["steps"])
+          + f" ms; B1 launches a step {[s['launches'] for s in x['steps']]}"
+          f" (the lowered graph dispatches {x['dispatches']}; at q, k "
+          f"{x['b1_shapes']}); peak memory {x['peak_gib']:.2f} GiB on the "
+          f"card; the Session's numpy weights, gradients, m and v "
+          f"{x['host_state_gib']:.2f} GiB on the host (the process's peak "
+          f"{x['host_peak_gib']:.2f} GiB"
+          + (f", {x['host_left_gib']:.2f} GiB left once the Session is "
+             f"dropped" if "host_left_gib" in x else "")
+          + f"); step {DIST_STEPS}: "
+          f"pack {parts['pack'] * 1e3:.1f} ms, compute "
+          f"{parts['compute'] * 1e3:.1f} ms (B1 "
+          f"{parts['attention'] * 1e3:.2f}), comm "
+          f"{parts['comm'] * 1e3:.1f} ms (host staging "
+          f"{parts['staging'] * 1e3:.1f}, exchanges "
+          f"{parts['collective'] * 1e3:.1f}), fetch "
+          f"{parts['fetch'] * 1e3:.1f} ms, host AdamW "
+          f"{parts['adamw_s'] * 1e3:.1f} ms; comm over the run "
+          f"{x['comm']['p2p_messages']} messages, "
+          f"{x['comm']['p2p_bytes'] / 1e6:.1f} MB, "
+          f"{x['comm']['collectives']} collectives, "
+          f"{x['comm']['staged_bytes'] / 1e6:.1f} MB staged (plans: "
+          f"{x['comm']['stages']} stages, "
+          f"{x['comm']['uniform_reduce_stages']} uniform reduce, "
+          f"{x['comm']['uniform_copy_stages']} uniform copy, "
+          f"{x['comm']['copy_pairs']} pairs in "
+          f"{x['comm']['permute_rounds']} rounds, "
+          f"{x['comm']['grouped_reduces']} of "
+          f"{x['comm']['reduce_groups']} reduce groups on subgroup "
+          f"collectives); fetch {x['fetch']['staged_bytes'] / 1e6:.1f} MB "
+          f"staged")
+
+
+def check_rank_run(ranks, run, what, ir_losses, want_shapes):
+    """(b) or (c) against phase 5's run: B1 launches (one a layer a step
+    on every rank, none on the plain version) at ``want_shapes[rank]``,
+    the ranks' losses equal, losses within LOSS_RTOL of phase 5's and the
+    state within phase 7's limits.  Returns the losses and their relative
+    differences."""
+    per_rank = [[s["launches"] for s in r[run]["steps"]] for r in ranks]
+    launches = sum(r[run]["launches"] for r in ranks)
+    want = DIST_RANKS * IR_LAYERS * DIST_STEPS
+    if launches != want or any(p != [IR_LAYERS] * DIST_STEPS
+                               for p in per_rank) \
+            or any(r[run]["plain_dispatches"] for r in ranks):
+        fail(f"{what}: B1 launches {per_rank}, expected {IR_LAYERS} a step "
+             f"on every rank ({want} in all) and no plain dispatch")
+    got = [sorted(tuple(map(tuple, x)) for x in r[run]["b1_shapes"])
+           for r in ranks]
+    if got != [[s] for s in want_shapes]:
+        fail(f"{what}: B1 at q, k shapes {got}, expected "
+             f"{[[s] for s in want_shapes]}")
+    losses = [s["loss"] for s in ranks[0][run]["steps"]]
+    if any([s["loss"] for s in r[run]["steps"]] != losses for r in ranks):
+        fail(f"{what}: the ranks' losses differ")
+    lrel = [abs(a - b) / abs(b) for a, b in zip(losses, ir_losses)]
+    limits = {"weights": TRAIN_PARAM_NORMWISE, "m": TRAIN_STATE_NORMWISE,
+              "v": TRAIN_STATE_NORMWISE}
+    x = ranks[0][run]
+    worst = x["normwise"]
+    print(f"  ({run}) losses {losses} vs phase 5's {list(ir_losses)} (rel "
+          + ", ".join(f"{e:.1e}" for e in lrel) + f"; rtol {LOSS_RTOL:.0e})"
+          f"; after step {DIST_STEPS} against phase 5's run (normwise, every"
+          f" part; key biases' m and v left out): " + ", ".join(
+              f"{k} {e:.2e} ({n}; limit {limits[k]:.0e})"
+              for k, (e, n) in worst.items())
+          + f"; {'bitwise' if x['bitwise'] else 'not bitwise'} (compare "
+          f"{x['compare_s']:.1f} s"
+          + (f", {x['replicas_checked']} phase-5 replicas bitwise their "
+             f"twins" if "replicas_checked" in x else "") + ")")
+    if max(lrel) > LOSS_RTOL or \
+            any(e > limits[k] for k, (e, _) in worst.items()):
+        fail(f"{what}: drifted from phase 5's run")
+    return losses, lrel
+
+
 def phase_dist(torch, fa, ref, ref_state, ir_losses):
-    """Phase 10: ranks sharing the card.  (a) The selftest's comm sweep at
-    ``DIST_SWEEP`` ranks over gloo, each case bitwise against the port's
-    simulator in every rank; NCCL where there are GPUs enough.  (b) Phase
-    5's program on ``DIST_RANKS`` ranks through ``DistExecutor``, held to
-    phase 5's run under phase 7's limits.  Returns B1's launches and
-    timings on this path and the phase's numbers."""
-    from repro_torch.runtime.harness import run_ranks
+    """Phase 10: ranks sharing the card.  (a) The selftest at
+    ``DIST_SWEEP`` ranks over gloo (the comm cases, and at 4 ranks the api
+    cases too), each case bitwise against the port's simulator in every
+    rank; NCCL where there are GPUs enough.  (b) Phase 5's program on
+    ``DIST_RANKS`` ranks through ``DistExecutor`` and (c) the same blocks
+    under the hsize=2 dp2|tp2 strategy, in one launch, each held to phase
+    5's run under phase 7's limits.  Returns B1's launches and timings on
+    this path and the phase's numbers."""
+    from repro_torch.runtime.harness import RankError, run_ranks
+
+    def ranks_run(*a, **kw):
+        try:
+            return run_ranks(*a, **kw)
+        except RankError as e:
+            tails = "\n".join(f"rank {i}: {p.stdout[-1500:]}{p.stderr[-3000:]}"
+                              for i, p in enumerate(e.outputs))
+            fail(f"{e}\n{tails}")
 
     print("== phase 10: ranks sharing the card (torch.distributed, gloo, "
           "every payload staged through host memory)")
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     sweep = {}
-    for n in DIST_SWEEP:
+    for n, cases in DIST_SWEEP.items():
         t0 = time.perf_counter()
-        procs = run_ranks("repro_torch.runtime.selftest", n, backend="gloo",
+        procs = ranks_run("repro_torch.runtime.selftest", n, backend="gloo",
                           device="cuda", timeout=DIST_SWEEP_TIMEOUT,
-                          extra_args=["--cases", "comm"])
+                          extra_args=["--cases", cases])
         rep = rank_reports(procs[:1], "RUNTIME_SELFTEST_JSON")[0]
         wall = time.perf_counter() - t0
         bad = [k for k, c in rep["cases"].items() if not c["ok"]]
-        print(f"  selftest at {n} ranks on {rep['device']} over "
+        print(f"  selftest ({cases}) at {n} ranks on {rep['device']} over "
               f"{rep['backend']}: {len(rep['cases'])} cases, "
               f"{'all bitwise the simulator' if not bad else bad} "
               f"({wall:.1f} s); per case, over the ranks: p2p messages / "
-              f"bytes, collectives, staged host bytes")
+              f"bytes, collectives, staged host bytes (a switch's "
+              f"migrations are not counted)")
         for key, c in rep["cases"].items():
             if "p2p_messages" in c:
-                print(f"    {key:22s} {c['p2p_messages']:3d} / "
-                      f"{c['p2p_bytes']:6d} B, {c['collectives']:2d}, "
-                      f"{c['staged_bytes']:6d} B")
+                print(f"    {key:26s} {c['p2p_messages']:4d} / "
+                      f"{c['p2p_bytes']:7d} B, {c['collectives']:4d}, "
+                      f"{c['staged_bytes']:7d} B"
+                      + (f"; gradient plans "
+                         f"{sorted(set(c['grad_comms'].values()))}"
+                         if "grad_comms" in c else "")
+                      + (f"; {c['kinds']}" if "kinds" in c else ""))
+            else:
+                print(f"    {key:26s} ok")
         if bad or not rep["ok"] or rep["device"] != "cuda":
-            fail(f"rank sweep at {n} ranks: {bad}")
-        sweep[n] = {"cases": len(rep["cases"]), "wall_s": wall,
+            fail(f"rank selftest at {n} ranks: {bad}")
+        sweep[n] = {"cases": len(rep["cases"]), "groups": cases,
+                    "wall_s": wall,
                     "per_case": {k: {f: c.get(f) for f in (
                         "p2p_messages", "p2p_bytes", "collectives",
                         "staged_bytes")} for k, c in rep["cases"].items()}}
     count = torch.cuda.device_count()
     if count >= 2:
-        procs = run_ranks("repro_torch.runtime.selftest", 2, backend="nccl",
+        procs = ranks_run("repro_torch.runtime.selftest", 2, backend="nccl",
                           device="cuda", timeout=DIST_SWEEP_TIMEOUT,
                           extra_args=["--cases", "comm"])
         rep = rank_reports(procs[:1], "RUNTIME_SELFTEST_JSON")[0]
@@ -2561,79 +2900,64 @@ def phase_dist(torch, fa, ref, ref_state, ir_losses):
         print(f"  NCCL not run: {count} visible GPU; NCCL refuses two ranks "
               f"on one GPU, so the nccl backend needs a GPU per rank")
 
-    cfg_name = "Qwen2-1.5B"
-    print(f"  {cfg_name} full width, {IR_LAYERS} layers, batch {IR_BATCH}, "
-          f"seq {IR_SEQ}, dp2 x tp2 on {DIST_RANKS} ranks sharing the card "
-          f"(DistExecutor, gloo), {DIST_STEPS} steps; each rank rebuilds "
-          f"phase 5's weights and feeds from seed 0")
+    print(f"  Qwen2-1.5B full width, {IR_LAYERS} layers, batch {IR_BATCH}, "
+          f"seq {IR_SEQ}, on {DIST_RANKS} ranks sharing the card "
+          f"(DistExecutor, gloo), {DIST_STEPS} steps under (b) dp2 x tp2, "
+          f"then (c) the hsize=2 dp2|tp2 strategy (dp2 on devices 0-1, tp2 "
+          f"on 2-3, each on half the batch) in the same launch; each rank "
+          f"rebuilds phase 5's weights and feeds from seed 0")
+    print(f"  this process holds {trim_host():.2f} GiB of host memory "
+          f"before the launch")
     t0 = time.perf_counter()
-    procs = run_ranks(
+    procs = ranks_run(
         "import sys, chip_smoke; sys.exit(chip_smoke.dist_rank_main())",
         DIST_RANKS, backend="gloo", device="cuda", timeout=DIST_RUN_TIMEOUT,
         extra_args=["--ref", ref_state])
     run_s = time.perf_counter() - t0
     ranks = rank_reports(procs, "DIST_RANK_JSON")
-    per_rank = [[s["launches"] for s in r["steps"]] for r in ranks]
-    launches = sum(r["launches"] for r in ranks)
-    losses = [s["loss"] for s in ranks[0]["steps"]]
-    for r in ranks:
-        parts = r["steps"][-1]
-        print(f"  rank {r['rank']} on {r['device']}: setup {r['setup_s']:.1f}"
-              f" s; steps " + ", ".join(f"{s['wall_s'] * 1e3:.0f}"
-                                        for s in r["steps"])
-              + f" ms; B1 launches a step {per_rank[r['rank']]} (the lowered"
-              f" graph dispatches {r['dispatches']}); peak memory "
-              f"{r['peak_gib']:.2f} GiB on the card; the Session's numpy "
-              f"weights, gradients, m and v {r['host_state_gib']:.2f} GiB on "
-              f"the host; step {DIST_STEPS}: pack "
-              f"{parts['pack'] * 1e3:.1f} ms, compute "
-              f"{parts['compute'] * 1e3:.1f} ms (B1 "
-              f"{parts['attention'] * 1e3:.2f}), comm "
-              f"{parts['comm'] * 1e3:.1f} ms (host staging "
-              f"{parts['staging'] * 1e3:.1f}, exchanges "
-              f"{parts['collective'] * 1e3:.1f}), fetch "
-              f"{parts['fetch'] * 1e3:.1f} ms, host AdamW "
-              f"{parts['adamw_s'] * 1e3:.1f} ms; comm over the run "
-              f"{r['comm']['p2p_messages']} messages, "
-              f"{r['comm']['p2p_bytes'] / 1e6:.1f} MB, "
-              f"{r['comm']['collectives']} collectives, "
-              f"{r['comm']['staged_bytes'] / 1e6:.1f} MB staged; fetch "
-              f"{r['fetch']['staged_bytes'] / 1e6:.1f} MB staged")
-    want = DIST_RANKS * IR_LAYERS * DIST_STEPS
-    if launches != want or any(p != [IR_LAYERS] * DIST_STEPS
-                               for p in per_rank) \
-            or any(r["plain_dispatches"] for r in ranks):
-        fail(f"rank path: B1 launches {per_rank}, expected {IR_LAYERS} a "
-             f"step on every rank ({want} in all)")
-    if any([s["loss"] for s in r["steps"]] != losses for r in ranks):
-        fail("rank path: the ranks' losses differ")
-    lrel = [abs(a - b) / abs(b) for a, b in zip(losses, ir_losses)]
-    limits = {"weights": TRAIN_PARAM_NORMWISE, "m": TRAIN_STATE_NORMWISE,
-              "v": TRAIN_STATE_NORMWISE}
-    worst = ranks[0]["normwise"]
-    print(f"  losses {losses} vs phase 5's {list(ir_losses)} (rel "
-          + ", ".join(f"{x:.1e}" for x in lrel) + f"; rtol {LOSS_RTOL:.0e})"
-          f"; after step {DIST_STEPS} against phase 5's run (normwise; key "
-          f"biases' m and v left out): " + ", ".join(
-              f"{k} {e:.2e} ({n}; limit {limits[k]:.0e})"
-              for k, (e, n) in worst.items())
-          + f"; {'bitwise' if ranks[0]['bitwise'] else 'not bitwise'} "
-          f"(compare {ranks[0]['compare_s']:.1f} s); ranks' run "
-          f"{run_s:.1f} s")
-    if max(lrel) > LOSS_RTOL or \
-            any(e > limits[k] for k, (e, _) in worst.items()):
-        fail("rank path: drifted from phase 5's run")
-    # B1 at this path's shape: each rank's q is its own (2, 6, 512, 128)
+    for run in ("b", "c"):
+        for r in ranks:
+            print_rank_run(r, run)
+    plans = ranks[0]["c"]["grad_plans"]
+    print("  (c) gradient plans: " + "; ".join(
+        f"{kind}: {len(ws)} ({', '.join(ws[:3])}"
+        f"{', ...' if len(ws) > 3 else ''})" for kind, ws in plans.items()))
+    if not any("SplitAR" in kind for kind in plans):
+        fail(f"(c): no gradient resolves to a SplitAR: {sorted(plans)}")
+    # B1's q and k on a rank: half the batch and half the heads under
+    # tp2 ((b), and (c)'s ranks 2-3); a dp2 row of half the batch with all
+    # the heads ((c)'s ranks 0-1)
+    hd = 128
+    tp = ((IR_BATCH // 2, 6, IR_SEQ, hd), (IR_BATCH // 2, 1, IR_SEQ, hd))
+    dp = ((IR_BATCH // 4, 12, IR_SEQ, hd), (IR_BATCH // 4, 2, IR_SEQ, hd))
+    b_losses, b_rel = check_rank_run(ranks, "b", "rank path (b)", ir_losses,
+                                     [tp] * DIST_RANKS)
+    c_losses, c_rel = check_rank_run(ranks, "c", "rank path (c)", ir_losses,
+                                     [dp, dp, tp, tp])
+    print(f"  ranks' run {run_s:.1f} s")
+    # B1 at this path's shapes: (b)'s and (c)'s tp2 ranks take q
+    # (2, 6, 512, 128); (c)'s dp2 ranks q (1, 12, 512, 128)
     shape = (f"B{IR_BATCH // 2} H6 K1 S{IR_SEQ} D128 causal fp32 (graph-IR "
-             f"Qwen2-1.5B dp2 x tp2 on {DIST_RANKS} ranks sharing the card: "
-             f"one rank's row)")
+             f"Qwen2-1.5B on {DIST_RANKS} ranks sharing the card: a rank's "
+             f"row under dp2 x tp2, and a tp2 rank of dp2|tp2)")
     timing = b1_at_shape(torch, fa, ref, shape, IR_BATCH // 2, 6, 1,
                          IR_SEQ, 128)
-    timing["launches"] = launches
+    timing["launches"] = sum(r["b"]["launches"] for r in ranks) + sum(
+        r["c"]["launches"] for r in ranks if r["rank"] >= 2)
+    shape = (f"B{IR_BATCH // 4} H12 K2 S{IR_SEQ} D128 causal fp32 (graph-IR "
+             f"Qwen2-1.5B under dp2|tp2 on {DIST_RANKS} ranks sharing the "
+             f"card: a dp2 rank's row)")
+    timing_dp = b1_at_shape(torch, fa, ref, shape, IR_BATCH // 4, 12, 2,
+                            IR_SEQ, 128)
+    timing_dp["launches"] = sum(r["c"]["launches"] for r in ranks
+                                if r["rank"] < 2)
     t_phase = time.perf_counter() - t_phase
     print(f"  phase 10: {t_phase:.1f} s")
-    return timing, {"sweep": sweep, "ranks": ranks, "losses": losses,
-                    "loss_rel": lrel, "run_s": run_s, "phase_s": t_phase}
+    return [timing, timing_dp], {
+        "sweep": sweep, "ranks": ranks, "losses": {"b": b_losses,
+                                                   "c": c_losses},
+        "loss_rel": {"b": b_rel, "c": c_rel}, "run_s": run_s,
+        "phase_s": t_phase}
 
 
 def main() -> int:
@@ -2682,6 +3006,9 @@ def main() -> int:
     if any(s.startswith("rglru_scan:") for s in spills):
         fail("the RG-LRU kernel spills registers")
 
+    sim_dir = tempfile.TemporaryDirectory(prefix="phase5-sim-")
+    sim_ref = SimulatorReference(sim_dir.name)
+
     print("== phase 3: kernels vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     fa_worst, fa_t = phase_attention(torch, fa, ref, gen)
@@ -2690,7 +3017,8 @@ def main() -> int:
 
     paths = {arch: phase_serve(torch, policy, arch) for arch in ARCHS}
     total = {k: sum(p[k] for p in paths.values()) for k in paths[ARCHS[0]]}
-    ir, ir_run = phase_graph_ir(torch, fa, ref)
+    ir, ir_run = phase_graph_ir(torch, fa, ref, sim_ref)
+    sim_dir.cleanup()
     total["flash"] += ir["launches"]
     kmods = {"flash": fa, "ssd": sk, "rglru": rk}
     train = {arch: phase_train(torch, policy, kmods, arch, layers)
@@ -2712,7 +3040,7 @@ def main() -> int:
             total[k] += n
     with ref_dir:
         dist_b1, ranks = phase_dist(torch, fa, ref, ref_state, ir_losses)
-    total["flash"] += dist_b1["launches"]
+    total["flash"] += sum(t["launches"] for t in dist_b1)
 
     def training(kind):
         """Each training config's launches a step and plain recompute."""
@@ -2756,7 +3084,7 @@ def main() -> int:
          "launches": 0, **fa_t[(192, "bfloat16")]},
         *({**fam_b1[arch], "launches": fams[arch]["launches"]["flash"]}
           for arch in fam_b1),
-        dist_b1]
+        *dist_b1]
     kernels = [
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:114", total["flash"],

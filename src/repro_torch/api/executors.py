@@ -394,16 +394,33 @@ class DistExecutor(TorchExecutor):
         super().__init__(mesh.device)
         self.mesh = mesh
         self.times = RankRunTimes()
+        # the traffic counters of every graph lowered here (its comm
+        # plans' and its fetch's), kept past the graph's eviction
+        self._traffic: list = []
 
     def _lower(self, compiled: CompiledPlan, fetches: list[str] | None,
                num_microbatches: int):
         from repro_torch.runtime.dist_program import RankLoweredGraph
-        return RankLoweredGraph(compiled.graph, compiled.strategy_index,
-                                mesh=self.mesh,
-                                shape_env=compiled.shape_env,
-                                topology=compiled.topology, fetches=fetches,
-                                num_microbatches=num_microbatches,
-                                times=self.times)
+        lw = RankLoweredGraph(compiled.graph, compiled.strategy_index,
+                              mesh=self.mesh, shape_env=compiled.shape_env,
+                              topology=compiled.topology, fetches=fetches,
+                              num_microbatches=num_microbatches,
+                              times=self.times)
+        self._traffic += lw.traffic_counters()
+        return lw
+
+    def traffic(self):
+        """This rank's traffic over every run so far (``LoweringStats``:
+        point-to-point messages and bytes, collectives, bytes staged),
+        the comm plans' and the fetches' together."""
+        from repro_torch.runtime.lowering import LoweringStats
+        total = LoweringStats()
+        for stats in self._traffic:
+            for name in ("p2p_messages", "p2p_bytes", "collectives",
+                         "staged_bytes"):
+                setattr(total, name,
+                        getattr(total, name) + getattr(stats, name))
+        return total
 
 
 def _executor_registry() -> dict:

@@ -187,6 +187,11 @@ def sharded_grad_norm(grads) -> float:
     return float(np.sqrt(acc))
 
 
+#: elements of the flat buffers that the sharded update's elementwise
+#: chain takes at a time (16 MB of fp32 scratch, twice)
+FLAT_CHUNK = 1 << 22
+
+
 def sharded_apply_updates(params, grads, opt_state, cfg: AdamWConfig):
     """AdamW over sharded weights: returns ``(new_params, new_state,
     metrics)`` with the same structure; deterministic numpy, identical
@@ -298,8 +303,9 @@ def sharded_apply_updates(params, grads, opt_state, cfg: AdamWConfig):
             P, M, V = (np.concatenate([j[i].ravel() for j in jobs])
                        for i in (2, 4, 5))
             G = np.empty_like(P)
-            t = np.empty_like(P)
-            S = np.empty_like(P)
+            # the chain's scratch covers one chunk of the flat buffers
+            t = np.empty(min(P.size, FLAT_CHUNK), P.dtype)
+            S = np.empty_like(t)
         off = 0                 # grads land in G in ONE pass per tile
         for _, _, _, g0, _, _ in jobs:
             n = g0.size
@@ -335,23 +341,30 @@ def sharded_apply_updates(params, grads, opt_state, cfg: AdamWConfig):
                     v_st.parts[dev])
 
     if jobs:
-        G *= scale                              # g = g * scale
-        M *= b1                                 # m = b1*m + omb1*g
-        np.multiply(G, omb1, out=t)
-        M += t
-        V *= b2                                 # v = b2*v + (omb2*g)*g
-        np.multiply(G, omb2, out=t)
-        t *= G
-        V += t
-        np.divide(M, bc1, out=S)                # (m/bc1)/(sqrt(v/bc2)+eps)
-        np.divide(V, bc2, out=t)
-        np.sqrt(t, out=t)
-        t += eps
-        S /= t
-        np.multiply(P, wd, out=t)               # step += wd*p
-        S += t
-        S *= lr                                 # p -= lr*step
-        P -= S
+        # the elementwise chain, a chunk of the flat buffers at a time:
+        # every element sees the same operations in the same order, so
+        # the chunking changes no bit and bounds the scratch
+        for a in range(0, P.size, FLAT_CHUNK):
+            b = min(a + FLAT_CHUNK, P.size)
+            p_, g_, m_, v_ = P[a:b], G[a:b], M[a:b], V[a:b]
+            t_, S_ = t[:b - a], S[:b - a]
+            g_ *= scale                         # g = g * scale
+            m_ *= b1                            # m = b1*m + omb1*g
+            np.multiply(g_, omb1, out=t_)
+            m_ += t_
+            v_ *= b2                            # v = b2*v + (omb2*g)*g
+            np.multiply(g_, omb2, out=t_)
+            t_ *= g_
+            v_ += t_
+            np.divide(m_, bc1, out=S_)          # (m/bc1)/(sqrt(v/bc2)+eps)
+            np.divide(v_, bc2, out=t_)
+            np.sqrt(t_, out=t_)
+            t_ += eps
+            S_ /= t_
+            np.multiply(p_, wd, out=t_)         # step += wd*p
+            S_ += t_
+            S_ *= lr                            # p -= lr*step
+            p_ -= S_
         off = 0
         for name, devs, p0, _, _, _ in jobs:
             n = p0.size

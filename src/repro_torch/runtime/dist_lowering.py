@@ -26,9 +26,21 @@ same order:
   destinations, destinations that are not sources adding zeros,
 * ID / Slice: local retention.
 
-The stage then assembles this rank's next box from local retention and
-deliveries in the simulator's order (deliveries override retention and
-earlier deliveries).  Heterogeneous boxes (``hsplits``) need no padding:
+Before that general path, a stage is asked the stacked lowering's three
+static questions (``lowering.uniform_stage_static``, over the whole
+world): a *uniform reduce* stage (every group a reduce onto its own
+sources, the groups partitioning the world into equal subgroups with the
+same relative slices) is this rank's one subgroup ``all_gather`` and
+fold (one ``all_reduce`` under ``"fast"``), cut to the same local slice
+on every rank; a *uniform identity* stage is a local re-slice, with
+nothing exchanged or staged; a *uniform gather* stage (the full-mesh AG)
+is one world ``all_gather`` of the equal local shards in place of the
+n - 1 rounds.  Uniform stages count no pairs and no rounds, as in the
+stacked lowering and the reference.
+
+A general stage then assembles this rank's next box from local retention
+and deliveries in the simulator's order (deliveries override retention
+and earlier deliveries).  Heterogeneous boxes (``hsplits``) need no padding:
 every message carries one group box, whose shape both ends know, and an
 ``all_gather`` runs only inside a reduce group, whose contributions all
 have the group box's shape.  Only the fetch (:func:`gather_shards`) pads.
@@ -53,7 +65,7 @@ from repro_torch.core.plan import (CommPlan, box_contains, box_intersect,
                                    box_shape, rel_slices)
 
 from .lowering import (DeviceOrder, LoweringStats, _fuse_rounds,
-                       check_stage_coverage)
+                       check_stage_coverage, uniform_stage_static)
 
 
 @dataclass
@@ -88,6 +100,9 @@ class _Stage:
     #: group's source, else None)
     pieces: list
     annot_after: object
+    #: the stage's whole-mesh form (``lowering.uniform_stage_static``),
+    #: or ``None`` for the general path above
+    uni: "dict | None" = None
 
 
 class RankPlanLowering:
@@ -97,11 +112,12 @@ class RankPlanLowering:
     ``i``); it is the plan's own order, or a graph's when the plan is one
     of its comm ops.  All geometry, and every subgroup, is made at
     construction; :meth:`apply` only moves data.  ``stats`` holds the
-    static geometry counts of the stacked path where they apply (stages,
-    copy pairs, rounds, reduce groups) and accumulates the rank path's
-    traffic over every :meth:`apply`: the messages and bytes this rank
-    sent point to point, the collectives it joined and the bytes it staged
-    between its device and host memory."""
+    static geometry counts as the stacked path counts them (stages,
+    uniform stages, copy pairs, rounds), every reduce group and those of
+    them on a subgroup collective (as the reference counts both), and
+    accumulates the rank path's traffic over every :meth:`apply`: the
+    messages and bytes this rank sent point to point, the collectives it
+    joined and the bytes it staged between its device and host memory."""
 
     def __init__(self, plan: CommPlan, shape: tuple[int, ...],
                  order: DeviceOrder, mesh, *, reduction: str = "exact"):
@@ -151,10 +167,14 @@ class RankPlanLowering:
                               if d != g.srcs[0]]
         check_stage_coverage(prev, stage.annot_after, deliveries, self.shape,
                              "+".join(st.kind for st in stage.steps))
+        self.stats.stages += 1
+        uni = uniform_stage_static(stage, prev, self.shape, self.order,
+                                   self.mesh.world)
+        if uni is not None:
+            return self._uniform_static(stage, prev, uni)
         rounds = _fuse_rounds(pairs)
         self.stats.copy_pairs += len(pairs)
         self.stats.permute_rounds += len(rounds)
-        self.stats.stages += 1
         mine = []
         for r in rounds:
             ops = _RoundOps()
@@ -181,6 +201,31 @@ class RankPlanLowering:
                                    if own else None))
         return _Stage(mine, reduces, pieces, stage.annot_after)
 
+    def _uniform_static(self, stage, prev, uni) -> _Stage:
+        """This rank's part of a uniform stage, which counts no pairs and
+        no rounds (as ``PlanLowering`` counts it).  Every rank holds a
+        device of the plan here (the order spans the world):
+
+        * reduce: the group holding this rank is one subgroup
+          ``all_gather`` (``all_reduce`` under ``"fast"``) with its fold;
+          every group's subgroup is made on every rank, in plan order,
+        * ident: a local re-slice, nothing exchanged or staged,
+        * gather: one world ``all_gather`` of the equal local shards,
+          each rank cutting its tiles out of the sources' shards."""
+        if uni["kind"] == "reduce":
+            self.stats.uniform_reduce_stages += 1
+            mine = None
+            for step in stage.steps:
+                for g in step.groups:
+                    self.stats.reduce_groups += 1
+                    op = self._reduce_static(g, prev)
+                    if op is not None:
+                        mine = op
+            uni = dict(uni, op=mine)
+        else:
+            self.stats.uniform_copy_stages += 1
+        return _Stage([], [], [], stage.annot_after, uni)
+
     def _reduce_static(self, g, prev) -> "_ReduceOps | None":
         """This rank's part of reduce group ``g``; the group's subgroup is
         made here on every rank, member or not."""
@@ -197,8 +242,10 @@ class RankPlanLowering:
             mode = "p2p"
         if len(members) == 1:
             mode = "local"        # one device sums its own contribution
-        pg = self.mesh.group(members) if mode in ("gather", "allreduce") \
-            else None
+        pg = None
+        if mode in ("gather", "allreduce"):
+            pg = self.mesh.group(members)
+            self.stats.grouped_reduces += 1
         if me not in srcs and me not in dsts:
             return None
         op = _ReduceOps(g, mode, pg, members,
@@ -294,6 +341,28 @@ class RankPlanLowering:
             acc = acc + got[s].to(torch.float64)
         return acc
 
+    def _run_uniform(self, x, st: _Stage, prev, dtype, device):
+        """This rank's part of a uniform stage (:meth:`_uniform_static`);
+        returns its next shard."""
+        uni = st.uni
+        if uni["kind"] == "ident":
+            nbox = st.annot_after.device_box(self.dev, self.shape)
+            return x[self._rel(prev, self.dev, nbox)]
+        if uni["kind"] == "reduce":
+            piece = self._reduce(x, uni["op"], dtype, device)
+            return piece[uni["piece_rel"]].to(dtype)
+        t = self._out(x)
+        got = [torch.empty_like(t) for _ in range(self.mesh.world)]
+        self.stats.collectives += 1
+        dist.all_gather(got, t)
+        me = self.mesh.rank
+        out = torch.empty(uni["next_pad"], dtype=dtype, device=device)
+        for rows, piece_rel, dst_rel in uni["tiles"]:
+            src = rows[me]
+            out[dst_rel] = x[piece_rel] if src == me else \
+                self._in(got[src][piece_rel], device)
+        return out
+
     def apply(self, x: "torch.Tensor | None", dtype: torch.dtype,
               times=None) -> "torch.Tensor | None":
         """Run the plan's stages on this rank's shard ``x`` (``None`` where
@@ -315,6 +384,10 @@ class RankPlanLowering:
         if x is not None:
             x = x.to(dtype)
         for st in self._stages:
+            if st.uni is not None:
+                x, prev = self._run_uniform(x, st, prev, dtype,
+                                            device), st.annot_after
+                continue
             received = {}
             for ops in st.rounds:
                 got = self._exchange(

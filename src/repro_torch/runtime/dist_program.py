@@ -130,6 +130,12 @@ class RankLoweredGraph(StackedGraph):
             runs[id(seg)] = (seg, cls, live_out)
         return runs
 
+    def traffic_counters(self) -> list[LoweringStats]:
+        """The objects this graph's runs count their traffic into: each
+        comm plan's stats and the fetch's."""
+        return [lw.stats for lw in self._lowerings.values()] + \
+            [self.fetch_stats]
+
     @property
     def comm_stats(self) -> LoweringStats:
         """The comm plans' traffic so far on this rank, summed."""

@@ -38,7 +38,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core.annotations import HSPMD
+from repro_torch.core.annotations import HSPMD, PARTIAL
 from repro_torch.core.plan import (Box, CommPlan, box_contains,
                                    box_intersect, box_shape, rel_slices)
 from repro_torch.device import resolve_device
@@ -75,12 +75,17 @@ class LoweringStats:
     dispatch tally of the compute seam (``runtime.program``): how many
     attention classes go to the Hopper flash kernel (B1) and how many to
     the plain version (``kernels.policy``).  ``kernel_dispatches`` is the
-    counterpart of the reference's ``pallas_dispatches``."""
+    counterpart of the reference's ``pallas_dispatches``, and
+    ``permute_rounds`` of its ``ppermute_calls``: a uniform stage counts no
+    pairs and no rounds on either path."""
 
     copy_pairs: int = 0        # point-to-point (src, dst) deliveries
     permute_rounds: int = 0    # fused rounds (the reference's ppermutes)
     gather_rounds: int = 0     # of which run as one row gather
-    reduce_groups: int = 0     # reduce groups on the general path
+    # reduce groups: on the general path (stacked); every group (ranks,
+    # as the reference counts them) ...
+    reduce_groups: int = 0
+    grouped_reduces: int = 0   # ... of which run on a subgroup collective
     uniform_reduce_stages: int = 0  # stages run as whole-buffer reduces
     uniform_copy_stages: int = 0    # re-slice / all-gather whole-buffer
     stages: int = 0
@@ -226,6 +231,203 @@ def _fold(contribs: list[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
+def uniform_reduce_static(stage, prev, shape, order, n_mesh) -> dict | None:
+    """Static descriptor of a *uniform reduce stage* — the symmetric
+    case where every row plays the identical role:
+
+    * every group is a reduce whose destinations equal its sources,
+    * the groups' source positions partition the rows into
+      equal-size subgroups,
+    * every source extracts the same slice of its local padded
+      buffer,
+    * every destination's next-annotation box is fully covered by
+      its group's box, at the same local offsets.
+
+    Returns ``None`` when any condition fails (the general path)."""
+    groups = [g for step in stage.steps for g in step.groups]
+    if not groups or not all(g.reduce for g in groups):
+        return None
+    if any(set(g.dsts) != set(g.srcs) for g in groups):
+        return None
+    k = len(groups[0].srcs)
+    if any(len(g.srcs) != k for g in groups):
+        return None
+    pos_groups = [[order.pos(s) for s in g.srcs] for g in groups]
+    flat = sorted(p for ps in pos_groups for p in ps)
+    if flat != list(range(n_mesh)):
+        return None
+    gshape = box_shape(groups[0].box)
+    src_rel = None
+    for g in groups:
+        if box_shape(g.box) != gshape:
+            return None
+        for s in g.srcs:
+            r = rel_slices(prev.device_box(s, shape), g.box)
+            if src_rel is None:
+                src_rel = r
+            elif r != src_rel:
+                return None
+    nxt = stage.annot_after
+    if set(nxt.devices) != set(order.devices):
+        return None
+    dst_rel = piece_rel = nbox_shape = None
+    for g in groups:
+        for dev in g.dsts:
+            nbox = nxt.device_box(dev, shape)
+            inter = box_intersect(g.box, nbox)
+            if inter != nbox:   # piece must fully cover the dst box
+                return None
+            d_r = rel_slices(nbox, inter)
+            p_r = rel_slices(g.box, inter)
+            bs = box_shape(nbox)
+            if dst_rel is None:
+                dst_rel, piece_rel, nbox_shape = d_r, p_r, bs
+            elif (d_r, p_r, bs) != (dst_rel, piece_rel, nbox_shape):
+                return None
+    group_of = [0] * n_mesh
+    for gi, ps in enumerate(pos_groups):
+        for p in ps:
+            group_of[p] = gi
+    return {"kind": "reduce", "src_rel": src_rel, "k": k,
+            "members": pos_groups, "group_of": group_of,
+            "dst_rel": dst_rel, "piece_rel": piece_rel,
+            "next_pad": pad_shape(nxt, shape)}
+
+
+def _has_partial(annot) -> bool:
+    return annot.hdim == PARTIAL or \
+        any(ds.has_partial for ds in annot.dss)
+
+
+def uniform_ident_static(stage, prev, shape, order, n_mesh) -> dict | None:
+    """Static descriptor of a *uniform identity stage* — no
+    deliveries at all: every device re-slices data it already
+    holds, with the same local output shape everywhere.  Only the
+    slice OFFSETS vary per row (DP slab selection, TP column
+    selection), so the stage is one strided gather.  Excludes
+    Partial layouts: a Partial shard is a summand, and re-slicing
+    summands is only meaningful through a reduce stage."""
+    if any(step.groups for step in stage.steps):
+        return None
+    nxt = stage.annot_after
+    if set(nxt.devices) != set(order.devices):
+        return None
+    if not set(order.devices) <= set(prev.devices):
+        return None
+    if _has_partial(prev) or _has_partial(nxt):
+        return None
+    out_shape = None
+    starts: list = [None] * n_mesh
+    for dev in order.devices:
+        pbox = prev.device_box(dev, shape)
+        nbox = nxt.device_box(dev, shape)
+        if box_intersect(pbox, nbox) != nbox:
+            return None      # output not locally available
+        bs = box_shape(nbox)
+        if out_shape is None:
+            out_shape = bs
+        elif bs != out_shape:
+            return None
+        r = rel_slices(pbox, nbox)
+        starts[order.pos(dev)] = tuple(s.start for s in r)
+    if out_shape != pad_shape(nxt, shape):
+        return None
+    noop = all(not any(s) for s in starts)
+    return {"kind": "ident", "noop": noop, "out_shape": out_shape,
+            "starts": starts}
+
+
+def uniform_gather_static(stage, prev, shape, order, n_mesh) -> dict | None:
+    """Static descriptor of a *uniform gather stage*: pure copy
+    deliveries where every device contributes its (identical-shape)
+    local shard and assembles its next box from ``k`` such pieces
+    at identical destination offsets — only WHICH rows supply the
+    pieces differs, so each tile is one row gather.  Copies are
+    exact; sources with overlapping boxes are interchangeable because
+    replicated shards are bitwise identical (Partial layouts, whose
+    shards are summands, are excluded)."""
+    groups = [g for step in stage.steps for g in step.groups]
+    if not groups or any(g.reduce for g in groups):
+        return None
+    nxt = stage.annot_after
+    if set(nxt.devices) != set(order.devices):
+        return None
+    if set(prev.devices) != set(order.devices):
+        return None
+    if _has_partial(prev) or _has_partial(nxt):
+        return None
+    pboxes = [prev.device_box(order.devices[p], shape)
+              for p in range(n_mesh)]
+    piece_shape = box_shape(pboxes[0])
+    if any(box_shape(b) != piece_shape for b in pboxes):
+        return None
+    if piece_shape != pad_shape(prev, shape):
+        return None
+    next_pad = pad_shape(nxt, shape)
+    template: list | None = None   # (dst_rel, piece_rel, shape) per tile
+    picks: list = [None] * n_mesh
+    for dev in order.devices:
+        nbox = nxt.device_box(dev, shape)
+        if box_shape(nbox) != next_pad:
+            return None
+        tiles, seen = [], set()
+        for p in range(n_mesh):
+            ib = box_intersect(pboxes[p], nbox)
+            if ib is not None and ib not in seen:
+                seen.add(ib)
+                tiles.append(ib)
+        tiles.sort(key=lambda b: tuple(lo for lo, _ in b))
+        if sum(int(np.prod(box_shape(t))) for t in tiles) != \
+                int(np.prod(next_pad)):
+            return None      # tiles must cover the dst box exactly...
+        for a in range(len(tiles)):
+            for b in range(a + 1, len(tiles)):
+                if box_intersect(tiles[a], tiles[b]) is not None:
+                    return None   # ...without overlap
+        if template is None:
+            template = []
+            for t in tiles:
+                p = next((p for p in range(n_mesh)
+                          if box_contains(pboxes[p], t)), None)
+                if p is None:
+                    return None
+                template.append((rel_slices(nbox, t),
+                                 rel_slices(pboxes[p], t),
+                                 box_shape(t)))
+        if len(tiles) != len(template):
+            return None
+        chosen = []
+        for t, (d_r, p_r, ts) in zip(tiles, template):
+            if rel_slices(nbox, t) != d_r or box_shape(t) != ts:
+                return None
+            p = next((p for p in range(n_mesh)
+                      if box_contains(pboxes[p], t)
+                      and rel_slices(pboxes[p], t) == p_r), None)
+            if p is None:
+                return None
+            chosen.append(p)
+        picks[order.pos(dev)] = chosen
+    return {"kind": "gather",
+            "tiles": [([picks[p][t] for p in range(n_mesh)],
+                       template[t][1], template[t][0])
+                      for t in range(len(template))],
+            "next_pad": next_pad}
+
+
+def uniform_stage_static(stage, prev, shape, order, n_mesh) -> dict | None:
+    """The whole-mesh form of one stage, or ``None``: the first of a
+    uniform reduce, a uniform re-slice and a uniform all-gather whose
+    conditions hold.  Plain geometry (positions and relative slices),
+    shared by the stacked lowering and the rank lowering
+    (``runtime.dist_lowering``).  ``n_mesh`` is the mesh's size: a plan
+    over fewer devices than the mesh has is never uniform."""
+    if len(order) != n_mesh:
+        return None
+    return (uniform_reduce_static(stage, prev, shape, order, n_mesh)
+            or uniform_ident_static(stage, prev, shape, order, n_mesh)
+            or uniform_gather_static(stage, prev, shape, order, n_mesh))
+
+
 class PlanLowering:
     """Applies one CommPlan's stages to a stacked ``(n_mesh, *pad)``
     buffer on one torch device (row ``order.pos(dev)`` holds device
@@ -253,9 +455,7 @@ class PlanLowering:
         self._uniform_stages: list[dict | None] = []
         prev = plan.src
         for stage in plan.stages:
-            uni = (self._uniform_stage_static(stage, prev)
-                   or self._uniform_ident_static(stage, prev)
-                   or self._uniform_gather_static(stage, prev))
+            uni = self._uniform_static(stage, prev)
             self._uniform_stages.append(uni)
             if uni is not None:
                 if uni["kind"] == "reduce":
@@ -308,190 +508,25 @@ class PlanLowering:
             r.gather = (rows, rels.pop())
         return r
 
-    def _uniform_stage_static(self, stage, prev) -> dict | None:
-        """Static descriptor of a *uniform reduce stage* — the symmetric
-        case where every row plays the identical role:
-
-        * every group is a reduce whose destinations equal its sources,
-        * the groups' source positions partition the rows into
-          equal-size subgroups,
-        * every source extracts the same slice of its local padded
-          buffer,
-        * every destination's next-annotation box is fully covered by
-          its group's box, at the same local offsets.
-
-        Returns ``None`` when any condition fails (the general path)."""
-        groups = [g for step in stage.steps for g in step.groups]
-        if not groups or not all(g.reduce for g in groups):
+    def _uniform_static(self, stage, prev) -> dict | None:
+        """:func:`uniform_stage_static` with its positions as index
+        tensors on this lowering's device."""
+        uni = uniform_stage_static(stage, prev, self.shape, self.order,
+                                   self.n_mesh)
+        if uni is None:
             return None
-        if any(set(g.dsts) != set(g.srcs) for g in groups):
-            return None
-        k = len(groups[0].srcs)
-        if any(len(g.srcs) != k for g in groups):
-            return None
-        pos_groups = [[self.order.pos(s) for s in g.srcs] for g in groups]
-        flat = sorted(p for ps in pos_groups for p in ps)
-        if flat != list(range(self.n_mesh)):
-            return None
-        gshape = box_shape(groups[0].box)
-        src_rel = None
-        for g in groups:
-            if box_shape(g.box) != gshape:
-                return None
-            for s in g.srcs:
-                r = rel_slices(prev.device_box(s, self.shape), g.box)
-                if src_rel is None:
-                    src_rel = r
-                elif r != src_rel:
-                    return None
-        nxt = stage.annot_after
-        if set(nxt.devices) != set(self.order.devices):
-            return None
-        dst_rel = piece_rel = nbox_shape = None
-        for g in groups:
-            for dev in g.dsts:
-                nbox = nxt.device_box(dev, self.shape)
-                inter = box_intersect(g.box, nbox)
-                if inter != nbox:   # piece must fully cover the dst box
-                    return None
-                d_r = rel_slices(nbox, inter)
-                p_r = rel_slices(g.box, inter)
-                bs = box_shape(nbox)
-                if dst_rel is None:
-                    dst_rel, piece_rel, nbox_shape = d_r, p_r, bs
-                elif (d_r, p_r, bs) != (dst_rel, piece_rel, nbox_shape):
-                    return None
-        group_of = [0] * self.n_mesh
-        for gi, ps in enumerate(pos_groups):
-            for p in ps:
-                group_of[p] = gi
-        return {"kind": "reduce", "src_rel": src_rel, "k": k,
-                "members": torch.as_tensor(pos_groups, device=self.device),
-                "group_of": torch.as_tensor(group_of, device=self.device),
-                "dst_rel": dst_rel, "piece_rel": piece_rel,
-                "next_pad": pad_shape(nxt, self.shape)}
-
-    @staticmethod
-    def _has_partial(annot) -> bool:
-        from repro_torch.core.annotations import PARTIAL
-        return annot.hdim == PARTIAL or \
-            any(ds.has_partial for ds in annot.dss)
-
-    def _uniform_ident_static(self, stage, prev) -> dict | None:
-        """Static descriptor of a *uniform identity stage* — no
-        deliveries at all: every device re-slices data it already
-        holds, with the same local output shape everywhere.  Only the
-        slice OFFSETS vary per row (DP slab selection, TP column
-        selection), so the stage is one strided gather.  Excludes
-        Partial layouts: a Partial shard is a summand, and re-slicing
-        summands is only meaningful through a reduce stage."""
-        if any(step.groups for step in stage.steps):
-            return None
-        nxt = stage.annot_after
-        if set(nxt.devices) != set(self.order.devices):
-            return None
-        if not set(self.order.devices) <= set(prev.devices):
-            return None
-        if self._has_partial(prev) or self._has_partial(nxt):
-            return None
-        out_shape = None
-        starts: list = [None] * self.n_mesh
-        for dev in self.order.devices:
-            pbox = prev.device_box(dev, self.shape)
-            nbox = nxt.device_box(dev, self.shape)
-            if box_intersect(pbox, nbox) != nbox:
-                return None      # output not locally available
-            bs = box_shape(nbox)
-            if out_shape is None:
-                out_shape = bs
-            elif bs != out_shape:
-                return None
-            r = rel_slices(pbox, nbox)
-            starts[self.order.pos(dev)] = tuple(s.start for s in r)
-        if out_shape != pad_shape(nxt, self.shape):
-            return None
-        noop = all(not any(s) for s in starts)
-        return {"kind": "ident", "noop": noop, "out_shape": out_shape,
-                "index": None if noop else _box_index(starts, out_shape,
-                                                      self.device)}
-
-    def _uniform_gather_static(self, stage, prev) -> dict | None:
-        """Static descriptor of a *uniform gather stage*: pure copy
-        deliveries where every device contributes its (identical-shape)
-        local shard and assembles its next box from ``k`` such pieces
-        at identical destination offsets — only WHICH rows supply the
-        pieces differs, so each tile is one row gather.  Copies are
-        exact; sources with overlapping boxes are interchangeable because
-        replicated shards are bitwise identical (Partial layouts, whose
-        shards are summands, are excluded)."""
-        groups = [g for step in stage.steps for g in step.groups]
-        if not groups or any(g.reduce for g in groups):
-            return None
-        nxt = stage.annot_after
-        if set(nxt.devices) != set(self.order.devices):
-            return None
-        if set(prev.devices) != set(self.order.devices):
-            return None
-        if self._has_partial(prev) or self._has_partial(nxt):
-            return None
-        pboxes = [prev.device_box(self.order.devices[p], self.shape)
-                  for p in range(self.n_mesh)]
-        piece_shape = box_shape(pboxes[0])
-        if any(box_shape(b) != piece_shape for b in pboxes):
-            return None
-        if piece_shape != pad_shape(prev, self.shape):
-            return None
-        next_pad = pad_shape(nxt, self.shape)
-        template: list | None = None   # (dst_rel, piece_rel, shape) per tile
-        picks: list = [None] * self.n_mesh
-        for dev in self.order.devices:
-            nbox = nxt.device_box(dev, self.shape)
-            if box_shape(nbox) != next_pad:
-                return None
-            tiles, seen = [], set()
-            for p in range(self.n_mesh):
-                ib = box_intersect(pboxes[p], nbox)
-                if ib is not None and ib not in seen:
-                    seen.add(ib)
-                    tiles.append(ib)
-            tiles.sort(key=lambda b: tuple(lo for lo, _ in b))
-            if sum(int(np.prod(box_shape(t))) for t in tiles) != \
-                    int(np.prod(next_pad)):
-                return None      # tiles must cover the dst box exactly...
-            for a in range(len(tiles)):
-                for b in range(a + 1, len(tiles)):
-                    if box_intersect(tiles[a], tiles[b]) is not None:
-                        return None   # ...without overlap
-            if template is None:
-                template = []
-                for t in tiles:
-                    p = next((p for p in range(self.n_mesh)
-                              if box_contains(pboxes[p], t)), None)
-                    if p is None:
-                        return None
-                    template.append((rel_slices(nbox, t),
-                                     rel_slices(pboxes[p], t),
-                                     box_shape(t)))
-            if len(tiles) != len(template):
-                return None
-            chosen = []
-            for t, (d_r, p_r, ts) in zip(tiles, template):
-                if rel_slices(nbox, t) != d_r or box_shape(t) != ts:
-                    return None
-                p = next((p for p in range(self.n_mesh)
-                          if box_contains(pboxes[p], t)
-                          and rel_slices(pboxes[p], t) == p_r), None)
-                if p is None:
-                    return None
-                chosen.append(p)
-            picks[self.order.pos(dev)] = chosen
-        return {"kind": "gather",
-                "tiles": [(torch.as_tensor([picks[p][t]
-                                            for p in range(self.n_mesh)],
-                                           device=self.device),
-                           template[t][1], template[t][0])
-                          for t in range(len(template))],
-                "next_pad": next_pad}
+        dev = self.device
+        if uni["kind"] == "reduce":
+            uni["members"] = torch.as_tensor(uni["members"], device=dev)
+            uni["group_of"] = torch.as_tensor(uni["group_of"], device=dev)
+        elif uni["kind"] == "ident":
+            uni["index"] = None if uni["noop"] else _box_index(
+                uni["starts"], uni["out_shape"], dev)
+        else:
+            uni["tiles"] = [(torch.as_tensor(rows, device=dev), piece_rel,
+                             dst_rel)
+                            for rows, piece_rel, dst_rel in uni["tiles"]]
+        return uni
 
     # -- execution -----------------------------------------------------------
 

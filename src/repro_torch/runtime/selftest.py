@@ -16,10 +16,22 @@ simulator (``core.simulator.apply_plan`` and ``api.SimulatorExecutor``):
   (``reduction="fast"``); the paper's Fig 9 multi-step stage (7 devices,
   ``n >= 7``); a non-uniform ``hsplits`` stage (``n >= 4``); resharding
   round trips,
+  each kind case reports its lowering's tier counts (uniform reduce and
+  copy stages, stages, copy pairs, rounds); ``grouped:reduce/4``, a
+  SplitAR whose reduce groups all run on subgroup collectives
+  (``n >= 4``); ``fusion:stats/n``, the full-mesh AG as one uniform
+  gather stage and an AG over ``n/2`` devices on the general path's
+  fused rounds (``n >= 4``),
 * ``api`` cases: ``api:session/n``, ``api:pipeline/n``,
-  ``api:pipeline/interleavedn`` and ``api:train/n`` through
-  ``api.DistExecutor``, and ``switch:dist/n``, the fused-BSR weight
-  migration through ``core.switching.execute_switch(backend="dist")``.
+  ``api:pipeline/interleavedn``, ``api:train/n`` and
+  ``api:train/interleavedn`` (the zigzag program trained under the
+  interleaved schedule at m = 1, 2, 4) through ``api.DistExecutor``;
+  ``switch:dist/n``, the fused-BSR weight migration through
+  ``core.switching.execute_switch(backend="dist")``; and, at ``n >= 4``,
+  ``api:train/hetero4`` (the hsize=2 gradient path: a bottom AR, then a
+  top SplitAR, against the dense numpy gradients) and the three
+  ``elastic:trace/*`` traces through ``elastic.ElasticDriver`` against an
+  uninterrupted run.
 
 With ``--out DIR`` rank 0 writes each case's inputs and output shards to
 ``DIR/<case>.npz`` (keys ``<label>|<tensor>|<device>``), for a checker in
@@ -27,8 +39,9 @@ another process (the JAX package's tests) to hold against its own
 simulator.  Rank 0 prints one line per case and one
 ``RUNTIME_SELFTEST_JSON {...}`` line: each case's ``ok``, its plan's step
 kinds, and the traffic of its plans summed over the ranks (point-to-point
-messages and bytes, collectives, bytes staged through host memory).  The
-``async:*`` and ``search:*`` cases of the reference are not ported yet.
+messages and bytes, collectives, bytes staged through host memory; for
+an api case, its ``DistExecutor`` runs' plans and fetches).  Of the
+reference's cases only ``async:*`` and ``search:*`` are not ported yet.
 The sweep stops at the first case that fails on a rank; that rank prints
 its report and exits non-zero.
 """
@@ -51,6 +64,24 @@ TRAFFIC = ("p2p_messages", "p2p_bytes", "collectives", "staged_bytes")
 PIPE_RUNS = [(1, "1f1b"), (2, "1f1b"), (4, "1f1b"), (4, "gpipe"),
              (2, "interleaved"), (4, "interleaved")]
 TRAIN_RUNS = [(1, "1f1b"), (2, "1f1b"), (4, "gpipe")]
+#: the lowering's static counts that the rank path shares with the
+#: stacked one (``LoweringStats``)
+TIERS = ("uniform_reduce_stages", "uniform_copy_stages", "stages",
+         "copy_pairs", "permute_rounds")
+#: the reference's elastic traces (``repro/runtime/selftest.py``):
+#: ``(step, devices, layout)`` events, with the transition kinds expected
+ELASTIC_TRACES = {
+    "elastic:trace/4to2": ([(0, (0, 1, 2, 3), "dp"), (2, (0, 1), "dp"),
+                            (4, (0, 1), "pp")], ["shrink", "class-change"]),
+    "elastic:trace/2to4": ([(0, (0, 1), "dp"), (2, (0, 1, 2, 3), "dp"),
+                            (4, (0, 1, 2, 3), "pp")],
+                           ["grow", "class-change"]),
+    "elastic:trace/hetero": ([(0, (0, 1, 2, 3), "dp"),
+                              (2, (0, 1, 2, 3), "hetero"),
+                              (4, (0, 1), "dp")],
+                             ["class-change", "shrink"]),
+}
+ELASTIC_STEPS = 6
 
 
 def _api():
@@ -108,6 +139,41 @@ def fig9_graph(a=None):
     g.comm(y, y_next, name="Y2")
     g.deduce()
     return g
+
+
+def hetero_block_strategy(g, a=None):
+    """An hsize=2 strategy for a ``models.graph_block.build_block`` graph
+    over devices ``[[0, 1], [2, 3]]``, built from the annotation types of
+    ``a`` (the port's ``api`` by default, or the JAX package's): every
+    activation splits its batch into two equal slabs (``hdim=0``);
+    subgroup ``[0, 1]`` runs its slab under dp2 (rows split, weights
+    duplicated), subgroup ``[2, 3]`` under tp2 (the slab duplicated, COL
+    and ROW weights split, REP ones duplicated); every weight has
+    ``hdim=DUP``.  The weight gradients therefore resolve to a bottom AR
+    inside ``[0, 1]`` and a top-tier SplitAR, the reference
+    ``hetero_program``'s path at block scale (the paper's Fig 17 pattern,
+    with a different TP degree in each subgroup)."""
+    a = a or _api()
+    DS, DUP, HSPMD = a.DS, a.DUP, a.HSPMD
+    dgs = [[0, 1], [2, 3]]
+    dup = DS({DUP: 2})
+    annots = {}
+    for t in g.annotation_points():
+        role = g.block_roles[t.name]
+        if role == "act":
+            dss, hdim = [DS({0: 2}), dup], 0
+        elif role == "act_last":
+            dss, hdim = [DS({0: 2}), DS({len(t.shape) - 1: 2})], 0
+        elif role == "col":
+            dss, hdim = [dup, DS({1: 2})], DUP
+        elif role == "row":
+            dss, hdim = [dup, DS({0: 2})], DUP
+        elif role == "rep":
+            dss, hdim = [dup, dup], DUP
+        else:
+            raise ValueError(f"unknown block role {role!r} for {t.name}")
+        annots[t.name] = HSPMD(dgs, dss, hdim=hdim)
+    return a.Strategy("dp2|tp2", annots)
 
 
 def hsplits_annots(a=None):
@@ -229,6 +295,7 @@ def comm_cases(mesh, n: int, save) -> dict:
 
     from .backend import compile_plan
     from .diff import differential_check, integer_decompose, roundtrip_check
+    from .lowering import LoweringStats
 
     cases = {}
     rng = np.random.default_rng(0)
@@ -246,7 +313,8 @@ def comm_cases(mesh, n: int, save) -> dict:
             assert kind in kinds, (kind, kinds, plan.kind)
             save(key, {**parts_arrays("src", st.parts),
                        **parts_arrays("dst", real)})
-            return {"plan_kind": plan.kind, "step_kinds": kinds}, stats
+            return {"plan_kind": plan.kind, "step_kinds": kinds,
+                    "tiers": {f: getattr(stats, f) for f in TIERS}}, stats
         key = f"{'int:' if fast else ''}{kind}/{n}"
         return key, case
 
@@ -284,6 +352,51 @@ def comm_cases(mesh, n: int, save) -> dict:
                     compiled.stats)
         cases["hetero:fig9/7"] = fig9_case
 
+    if n >= 4:
+        def grouped_case():
+            # the reference's grouped:reduce/4: a SplitAR over 4 devices
+            # whose cross-subgroup reduce groups all run on subgroup
+            # collectives
+            src, dst = kind_cases(4)["SplitAR"]
+            plan, st, real, stats = differential_check(
+                value, src, dst, mesh, rng=np.random.default_rng(5))
+            assert stats.reduce_groups > 0, vars(stats)
+            assert stats.grouped_reduces == stats.reduce_groups, vars(stats)
+            save("grouped:reduce/4", {**parts_arrays("src", st.parts),
+                                      **parts_arrays("dst", real)})
+            return {"reduce_groups": stats.reduce_groups,
+                    "grouped": stats.grouped_reduces}, stats
+        cases["grouped:reduce/4"] = grouped_case
+
+        def fusion_case():
+            # the full-mesh AG is one uniform gather stage: one world
+            # all_gather on each rank, no rounds ...
+            src, dst = kind_cases(n)["AG"]
+            _, _, real, uni = differential_check(value, src, dst, mesh)
+            assert uni.uniform_copy_stages == uni.stages > 0, vars(uni)
+            assert uni.permute_rounds == 0 and uni.p2p_messages == 0, \
+                vars(uni)
+            assert uni.collectives == 1, vars(uni)
+            for dev in range(n):
+                np.testing.assert_array_equal(real[dev], value)
+            # ... while an AG over half the world takes the general path,
+            # its pairs fused into fewer rounds
+            src, dst = kind_cases(n // 2)["AG"]
+            _, st, real, stats = differential_check(value, src, dst, mesh)
+            assert stats.uniform_copy_stages == 0, vars(stats)
+            assert 0 < stats.permute_rounds < stats.copy_pairs, vars(stats)
+            for dev in range(n // 2):
+                np.testing.assert_array_equal(real[dev], value)
+            save(f"fusion:stats/{n}", {**parts_arrays("src", st.parts),
+                                       **parts_arrays("dst", real)})
+            both = LoweringStats()
+            both.merge(uni)
+            both.merge(stats)
+            return {"copy_pairs": stats.copy_pairs,
+                    "permute_rounds": stats.permute_rounds,
+                    "uniform_copy_stages": uni.uniform_copy_stages}, both
+        cases[f"fusion:stats/{n}"] = fusion_case
+
     for name, (src, dst) in round_trips(n).items():
         def rt_case(name=name, src=src, dst=dst):
             v = np.random.default_rng(3).normal(size=SHAPE).astype(
@@ -297,14 +410,40 @@ def comm_cases(mesh, n: int, save) -> dict:
     return cases
 
 
+def grad_plan_kinds(tplan, resolve) -> dict:
+    """``{parameter: (hsize, hdim, plan kind)}`` of a compiled train
+    plan's gradient reduces: each gradient carrier's source annotation and
+    the kind of the plan that ``resolve`` (the port's
+    ``core.comm_resolve.resolve``, or the JAX package's) gives it."""
+    gg = tplan.graph
+    out = {}
+    for p in (t.name for t in gg.parameters()):
+        carrier = gg.tensors[gg.grad_map[p]]
+        src = carrier.producer.inputs[0].annots[0]
+        plan = resolve(src, carrier.annots[0], tuple(carrier.shape))
+        out[p] = (src.hsize, src.hdim, plan.kind)
+    return out
+
+
 def api_cases(mesh, n: int, save) -> dict:
-    """The ``api:*`` and switch cases over ``n`` devices."""
+    """The ``api:*``, switch and elastic cases over ``n`` devices."""
     api = _api()
     from repro_torch.api import testing
 
+    from .lowering import LoweringStats
+
+    made = []      # this case's DistExecutors, for its traffic
+
     def executors():
-        return (("sim", api.SimulatorExecutor()),
-                ("dist", api.DistExecutor(mesh)))
+        ex = api.DistExecutor(mesh)
+        made.append(ex)
+        return (("sim", api.SimulatorExecutor()), ("dist", ex))
+
+    def traffic() -> LoweringStats:
+        total = LoweringStats()
+        while made:
+            total.merge(made.pop().traffic())
+        return total
 
     def session_case():
         vals = session_values()
@@ -320,9 +459,7 @@ def api_cases(mesh, n: int, save) -> dict:
         save(f"api:session/{n}", {**{f"in|{k}|0": v for k, v in
                                       vals.items()},
                                    **shard_arrays("run", {"Y": outs["dist"]})})
-        # the last session is the DistExecutor's; its lowered graph is
-        # cached under (plan, no fetch list, one microbatch)
-        return {}, ex.lowered(sess.plan).comm_stats
+        return {}, traffic()
 
     def pipeline_case(program, values, runs, key, label):
         xv, ws, want_y = values
@@ -345,7 +482,7 @@ def api_cases(mesh, n: int, save) -> dict:
                 f"m{m}-{kind}", {t: got[("dist", m, kind)].shards(t)
                                  for t in ("Y", "L")}))
         save(key, arrays)
-        return {"runs": len(runs)}, None
+        return {"runs": len(runs)}, traffic()
 
     def train_case():
         xv, ws, want_y = testing.loss_pipeline_values(seed=11)
@@ -371,7 +508,118 @@ def api_cases(mesh, n: int, save) -> dict:
             arrays.update(shard_arrays(f"m{m}-{kind}-weight", wd))
             arrays[f"m{m}-{kind}-loss|L|0"] = np.float64(rd.loss)
         save(f"api:train/{n}", arrays)
-        return {"loss": float(want_y.sum())}, None
+        return {"loss": float(want_y.sum())}, traffic()
+
+    def train_interleaved_case():
+        # the zigzag (v=2) program trained under the interleaved schedule:
+        # gradients bitwise the simulator's, and equal across m
+        xv, ws, want_y = testing.zigzag_values(seed=13)
+        runs = {}
+        for m in (1, 2, 4):
+            for name, ex in executors():
+                sess = api.Session(testing.zigzag_program(n, name="zig"),
+                                   "zig", executor=ex)
+                sess.load(ws)
+                r = sess.train_step({"X": xv}, num_microbatches=m,
+                                    schedule="interleaved")
+                assert r.loss == float(want_y.sum()), (name, m, r.loss)
+                runs[(name, m)] = (r, dict(sess.weights))
+        base = runs[("sim", 1)][0]
+        arrays = {"in|X|0": xv, **{f"in|{k}|0": v for k, v in ws.items()}}
+        for (name, m), (r, w) in runs.items():
+            for k in ws:
+                _same(base.grads[k], r.grads[k], f"grad {k} {name} m={m}")
+            if name == "dist":
+                for k in ws:
+                    _same(runs[("sim", m)][1][k], w[k], f"weight {k} m={m}")
+                arrays.update(shard_arrays(f"m{m}-grad", r.grads))
+                arrays.update(shard_arrays(f"m{m}-weight", w))
+                arrays[f"m{m}-loss|L|0"] = np.float64(r.loss)
+        save(f"api:train/interleaved{n}", arrays)
+        return {"loss": base.loss}, traffic()
+
+    def train_hetero_case():
+        # hsize=2 training: the weight gradients come out hdim=Partial
+        # (one summand a subgroup's batch slab, another bottom-tier
+        # Partial inside the row-split subgroup), so each gradient's
+        # reduce is a bottom AR and then a top SplitAR
+        from repro_torch.core.annotations import PARTIAL
+        from repro_torch.core.comm_resolve import resolve
+
+        prog = testing.hetero_program()
+        xv, ws, want_loss, want_grads = testing.hetero_values(seed=7)
+        kinds = grad_plan_kinds(prog.compile_train("het", loss="L"),
+                                resolve)
+        for w, (hsize, hdim, kind) in kinds.items():
+            assert hsize == 2 and hdim == PARTIAL, (w, hsize, hdim)
+            assert "SplitAR" in kind, (w, kind)
+        runs = {}
+        for m in (1, 2):
+            for name, ex in executors():
+                sess = api.Session(prog, "het", executor=ex)
+                sess.load(ws)
+                r = sess.train_step({"X": xv}, num_microbatches=m)
+                assert r.loss == want_loss, (name, m, r.loss)
+                runs[(name, m)] = r
+        base = runs[("sim", 1)]
+        for k, want in want_grads.items():
+            for dev, part in base.grads[k].parts.items():
+                np.testing.assert_array_equal(
+                    part, want.astype(np.float32),
+                    err_msg=f"hetero grad {k} dev {dev} vs the dense one")
+        arrays = {"in|X|0": xv, **{f"in|{k}|0": v for k, v in ws.items()}}
+        for (name, m), r in runs.items():
+            for k in ws:
+                _same(base.grads[k], r.grads[k], f"grad {k} {name} m={m}")
+            if name == "dist":
+                arrays.update(shard_arrays(f"m{m}-grad", r.grads))
+        save("api:train/hetero4", arrays)
+        return {"loss": want_loss,
+                "grad_comms": {w: k[2] for w, k in kinds.items()}}, \
+            traffic()
+
+    def elastic_case(key):
+        # a trace through device loss and join on the ranks: weights, m
+        # and v bitwise the uninterrupted run's (the probe's gradients
+        # are weight-independent integers), losses to rtol 1e-5
+        from repro_torch.core.simulator import gather
+        from repro_torch.elastic import ElasticDriver, TraceEvent
+        from repro_torch.elastic.fixtures import (probe_feeds, probe_graph,
+                                                  probe_layout,
+                                                  probe_provider,
+                                                  probe_values,
+                                                  reference_run)
+
+        def snap(sess):
+            out = {k: gather(st) for k, st in sess.weights.items()}
+            for part in ("m", "v"):
+                for k, st in sess.opt_state[part].items():
+                    out[f"{part}/{k}"] = gather(st)
+            return out
+
+        trace, want_kinds = ELASTIC_TRACES[key]
+        ref, ref_losses = reference_run(
+            probe_layout([0, 1, 2, 3], "dp"), ELASTIC_STEPS,
+            executor=api.SimulatorExecutor())
+        want = snap(ref)
+        ex = api.DistExecutor(mesh)
+        made.append(ex)
+        drv = ElasticDriver(probe_graph(), probe_values(), probe_provider(),
+                            probe_feeds, executor=ex, num_microbatches=2)
+        run = drv.run([TraceEvent(*e) for e in trace], ELASTIC_STEPS)
+        got = snap(drv.session)
+        assert set(got) == set(want), (sorted(got), sorted(want))
+        for k, v in want.items():
+            np.testing.assert_array_equal(
+                got[k], v, err_msg=f"{k} drifted from the uninterrupted run")
+        np.testing.assert_allclose(run.losses, ref_losses, rtol=1e-5)
+        assert len(run.transitions) == 2, run.summary()
+        assert run.transition_kinds() == want_kinds, run.transition_kinds()
+        save(key, {f"final|{k.replace('/', ':')}|0": v
+                   for k, v in got.items()}
+             | {"losses|L|0": np.asarray(run.losses, np.float64)})
+        return {"kinds": run.transition_kinds(),
+                "losses": [float(x) for x in run.losses]}, traffic()
 
     def switch_case():
         from repro_torch.core.simulator import scatter
@@ -395,7 +643,7 @@ def api_cases(mesh, n: int, save) -> dict:
                                    **shard_arrays("back", back)})
         return {}, None
 
-    return {
+    cases = {
         f"api:session/{n}": session_case,
         f"api:pipeline/{n}": lambda: pipeline_case(
             lambda: testing.loss_pipeline_program(n, name="pipe"),
@@ -407,8 +655,14 @@ def api_cases(mesh, n: int, save) -> dict:
             [(m, "interleaved") for m in (1, 2, 4)],
             f"api:pipeline/interleaved{n}", "zig"),
         f"api:train/{n}": train_case,
+        f"api:train/interleaved{n}": train_interleaved_case,
         f"switch:dist/{n}": switch_case,
     }
+    if n >= 4:
+        cases["api:train/hetero4"] = train_hetero_case
+        for key in ELASTIC_TRACES:
+            cases[key] = lambda key=key: elastic_case(key)
+    return cases
 
 
 def run_all(mesh, groups=("comm", "api"), out_dir=None) -> dict:

@@ -9,7 +9,10 @@ holds those shards against the JAX package's ``simulator.apply_plan`` on
 the JAX package's own plans, bit for bit: every CommStep kind on random
 normal shards (the float64 fold in ``srcs`` order) and on integer shards
 (the native-dtype ``all_reduce``), the paper's Fig 9 stage, a non-uniform
-``hsplits`` stage and the round trips.  The rest runs in this process:
+``hsplits`` stage, the round trips, and the grouped-reduce and fusion cases;
+each kind case's lowering tiers are held against the stacked lowering's
+(``runtime.lowering.PlanLowering``) on the same plan.  The rest runs in
+this process:
 the backend choice, a plan wider than the world, and the harness's
 handling of a rank that fails or hangs.
 """
@@ -31,6 +34,8 @@ from repro.core.specialize import resolve_comm_ops as jresolve_comm_ops  # noqa:
 from repro_torch import api  # noqa: E402
 from repro_torch.launch import mesh as rmesh  # noqa: E402
 from repro_torch.runtime import backend, harness, selftest  # noqa: E402
+from repro_torch.runtime.lowering import (  # noqa: E402
+    DeviceOrder, PlanLowering)
 
 NS = (2, 4, 8)
 #: each selftest run's time limit; the three together take ~25 s here
@@ -148,9 +153,57 @@ def test_selftest_report_is_whole(comm_runs, n):
     assert (report["backend"], report["device"]) == ("gloo", "cpu")
     want = {f"{p}{k}/{n}" for k in selftest.KINDS for p in ("", "int:")}
     want |= {f"roundtrip:{name}" for name in selftest.round_trips(n)}
-    want |= {"hetero:hsplits/4"} if n >= 4 else set()
+    want |= {"hetero:hsplits/4", "grouped:reduce/4",
+             f"fusion:stats/{n}"} if n >= 4 else set()
     want |= {"hetero:fig9/7"} if n >= 7 else set()
     assert set(report["cases"]) == want
+
+
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("kind", selftest.KINDS)
+def test_rank_lowering_tiers_match_the_stacked_lowering(comm_runs, kind, n):
+    """The rank lowering takes the stacked lowering's uniform tiers on
+    the same plan: the same uniform reduce and copy stages, stages, copy
+    pairs and rounds, on the normal and the integer shards alike (the
+    shards themselves are held bitwise above)."""
+    src, dst = selftest.kind_cases(n)[kind]
+    plan = api.resolve(src, dst, selftest.SHAPE)
+    stacked = PlanLowering(plan, selftest.SHAPE, DeviceOrder.for_plan(plan),
+                           "cpu").stats
+    want = {f: getattr(stacked, f) for f in selftest.TIERS}
+    report, _ = comm_runs(n)
+    for key in (f"{kind}/{n}", f"int:{kind}/{n}"):
+        assert report["cases"][key]["tiers"] == want, key
+
+
+@pytest.mark.parametrize("n", (4, 8))
+def test_grouped_reduce_runs_on_subgroup_collectives(comm_runs, n):
+    """``grouped:reduce/4``: every reduce group of the SplitAR runs on a
+    subgroup collective, bitwise the JAX simulator; at 8 ranks the
+    4-device plan is narrower than the world and still grouped."""
+    jplan = japi.resolve(*selftest.kind_cases(4, japi)["SplitAR"],
+                         selftest.SHAPE)
+    case = held_against_jax(comm_runs, n, "grouped:reduce/4", jplan,
+                            selftest.SHAPE)
+    assert case["reduce_groups"] > 0
+    assert case["grouped"] == case["reduce_groups"]
+    assert case["p2p_messages"] == 0 and case["collectives"] > 0
+
+
+@pytest.mark.parametrize("n", (4, 8))
+def test_fusion_stats_full_mesh_gather_and_fused_rounds(comm_runs, n):
+    """``fusion:stats/n``: the full-mesh AG is one uniform gather stage
+    with no rounds, and an AG over half the world fuses its pairs into
+    fewer rounds, bitwise the JAX simulator."""
+    jplan = japi.resolve(*selftest.kind_cases(n // 2, japi)["AG"],
+                         selftest.SHAPE)
+    case = held_against_jax(comm_runs, n, f"fusion:stats/{n}", jplan,
+                            selftest.SHAPE)
+    assert case["uniform_copy_stages"] == 1
+    assert 0 < case["permute_rounds"] < case["copy_pairs"]
+    full = comm_runs(n)[0]["cases"][f"AG/{n}"]
+    assert full["tiers"]["permute_rounds"] == 0
+    assert full["p2p_messages"] == 0 and full["collectives"] == n
 
 
 #: each rank: ``execute_sharded`` on the AG kind case and ``execute_graph``

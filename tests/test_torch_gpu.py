@@ -633,3 +633,47 @@ def test_rank_sweep_sharing_the_card_matches_the_simulator(cuda):
     moved = [c for c in report["cases"].values()
              if c.get("p2p_messages") or c.get("collectives")]
     assert moved and all(c["staged_bytes"] > 0 for c in moved)
+
+
+# phase 5's Qwen2-1.5B block under dp2 x tp2 (batch 4, seq 512): each
+# device's local GEMMs, (rows, k) @ (k, n) with rows = batch 2 x seq 512
+# in the forward and k = 2 x 512 for a weight gradient
+BLOCK_GEMMS = {
+    "wq": ((2, 512, 1536), (1536, 768)),
+    "wk": ((2, 512, 1536), (1536, 128)),
+    "wo": ((2, 512, 768), (768, 1536)),
+    "w_up": ((2, 512, 1536), (1536, 4480)),
+    "w_down": ((2, 512, 4480), (4480, 1536)),
+    "lm_head": ((2, 512, 1536), (1536, 75968)),
+    "grad wq": ((1536, 1024), (1024, 768)),
+    "grad w_down": ((4480, 1024), (1024, 1536)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BLOCK_GEMMS))
+def test_block_gemm_one_row_against_four_rows_folded(cuda, name):
+    """One specialization class's GEMM of phase 5's block, through the
+    stacked executor's ``torch_ops.stacked_apply``, over the four devices'
+    rows at once (``TorchExecutor``) and over each row alone (a rank of
+    ``DistExecutor``), TF32 off.  The rows agree to fp32 rounding; the
+    test prints whether they come out bitwise equal (the question why the
+    rank run leaves phase 5's bits)."""
+    from repro_torch.runtime import torch_ops
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    a_shape, b_shape = BLOCK_GEMMS[name]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((4,) + a_shape, generator=gen, device=cuda)
+    b = torch.randn((4,) + b_shape, generator=gen, device=cuda) * 0.05
+    out_shape = a_shape[:-1] + b_shape[-1:]
+    folded = torch_ops.stacked_apply("dot", [a, b], {}, out_shape, 4, cuda)
+    rows = torch.cat([torch_ops.stacked_apply("dot", [a[r:r + 1],
+                                                      b[r:r + 1]], {},
+                                              out_shape, 1, cuda)
+                      for r in range(4)])
+    bitwise = [torch.equal(folded[r], rows[r]) for r in range(4)]
+    diff = (folded - rows).abs().max().item()
+    print(f"\nGEMM {name} {a_shape} @ {b_shape} on "
+          f"{torch.cuda.get_device_name(0)}: one row vs four folded, "
+          f"bitwise per row {bitwise}, max |diff| {diff:.3e}")
+    torch.testing.assert_close(rows, folded, rtol=1e-5, atol=1e-5)

@@ -12,9 +12,10 @@ Phases, in the order given:
 * ``ssd`` and ``rglru``: phase 3's SSD and RG-LRU scan cases.
 * ``families``: phase 9, DeepSeek-V2, Grok-1, Qwen2-VL and Whisper
   served at published widths.
-* ``dist``: phase 10, ranks sharing the card: the rank selftest's comm
-  sweep, then phase 5's program on 4 ranks against phase 5's run (which
-  it runs first, as ``chip_smoke.py`` does).
+* ``dist``: phase 10, ranks sharing the card: the rank selftest (comm
+  cases at 2 ranks, comm and api cases at 4), then phase 5's program on 4
+  ranks under dp2 x tp2 and under the hsize=2 dp2|tp2 strategy, against
+  phase 5's run (which it runs first, as ``chip_smoke.py`` does).
 
 Each phase prints what it prints in ``chip_smoke.py`` and then one line
 ``<phase>: {json}``.  A phase that fails exits non-zero, as in
@@ -36,7 +37,9 @@ def dist(torch, cs, fa, ref):
     """Phase 5's run, its final state written for the ranks, then phase
     10."""
     import tempfile
-    _, ir_run = cs.phase_graph_ir(torch, fa, ref)
+    with tempfile.TemporaryDirectory(prefix="phase5-sim-") as d:
+        _, ir_run = cs.phase_graph_ir(torch, fa, ref,
+                                      cs.SimulatorReference(d))
     with tempfile.TemporaryDirectory(prefix="phase5-") as d:
         ref_state = cs.dist_reference(ir_run, d)
         losses = ir_run["losses"]
