@@ -42,8 +42,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    count, against the lowered graph's layers x attention classes), step
    1's loss and every gradient must agree with the port's
    ``SimulatorExecutor`` run in numpy on the host at the same size (in a
-   child process that ``main`` starts after phase 2, so that its minutes
-   on the host run beside phases 3 and 4 on the card; loss
+   child process that ``main`` starts before phase 1, so that its minutes
+   on the host run beside phases 1 to 4 on the card; loss
    rtol 1e-5, gradients atol 1e-6 and rtol 2e-4 as ``tests/test_archs.py``
    holds the graph IR, and each gradient's normwise relative error at most
    2e-4, the key biases' excepted: at the full vocabulary every gradient
@@ -55,8 +55,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    Llama under tp2 x pp2 with two microbatches (1f1b): B1 once per layer
    per microbatch, and the same agreement with the simulator.
 6. the production trainer (``repro_torch.launch.train``): full-width
-   Qwen2-1.5B (28 layers) and Mamba2-370M (48), and RecurrentGemma-9B at
-   full width cut to one (rec, rec, attn) superblock, each at batch 8, seq
+   Qwen2-1.5B cut to 14 of its 28 layers and Mamba2-370M to 24 of its 48,
+   and RecurrentGemma-9B at full width cut to one (rec, rec, attn)
+   superblock (``TRAIN_ARCHS``), each at batch 8, seq
    512, 2 microbatches, remat, AdamW fp32, TF32 off, and freed before the
    next.  ``launch.train.main`` runs three steps: each kernel must launch
    layers x microbatches x 2 times a step (the forward and the remat
@@ -132,30 +133,50 @@ Phases, in order; any failure exits non-zero and prints no result line:
    payload staged through host memory; NCCL refuses two ranks on one GPU
    and runs only where there is a GPU per rank).  (a) The rank selftest
    (``python -m repro_torch.runtime.selftest`` under
-   ``runtime.harness.run_ranks``): the comm cases at 2 ranks, the comm
-   and api cases at 4: every CommStep kind on normal (exact) and integer
-   (fast) shards, hsplits, the round trips, the grouped-reduce and fusion
-   tiers, the api sessions, pipelines and train steps (1F1B, GPipe,
-   interleaved, the hsize=2 gradient path), the switch and the three
-   elastic traces, bitwise the port's simulator in every rank; the
-   messages, collectives and staged bytes per case.  (b) Phase 5's
+   ``runtime.harness.run_ranks``): the comm and async cases at 2 ranks,
+   the comm, api, async and search cases at 4: every CommStep kind on
+   normal (exact) and integer (fast) shards, hsplits, the round trips,
+   the grouped-reduce and fusion tiers, the api sessions, pipelines and
+   train steps (1F1B, GPipe, interleaved, the hsize=2 gradient path), the
+   switch and the three elastic traces, the async MPMD executor on ranks
+   (``api.DistAsyncExecutor``: one pipeline stage per rank, async and
+   serialized, pipelines and training incl. the v=2 zigzag) and the
+   strategy search validating its top three candidates on ranks, bitwise
+   the port's simulator in every rank; the messages, collectives and
+   staged bytes per case.  (b) Phase 5's
    program on 4 ranks through ``api.DistExecutor``, each rank rebuilding
-   phase 5's weights and feeds from seed 0, 3 steps: B1 twice a step on
-   every rank (24 in all) at q (2, 6, 512, 128), the losses within rtol
-   1e-5 of phase 5's and the weights, m and v after step 3 within phase
-   7's limits of phase 5's final state (which ``main`` writes to a
-   temporary directory after phase 7), and whether they came out bitwise.
+   phase 5's weights and feeds from seed 0, ``DIST_STEPS`` (2) steps: B1
+   twice a step on every rank (16 in all) at q (2, 6, 512, 128), the
+   losses within rtol 1e-5 of phase 5's and the weights, m and v after
+   the last step within phase 7's limits of phase 5's state after the
+   same step (which ``main`` writes to a
+   temporary directory after phase 7), and whether they came out
+   bitwise.
    (c) In the same launch, the same blocks under the hsize=2 dp2|tp2
    strategy (``runtime.selftest.hetero_block_strategy``: dp2 on devices
-   0-1, tp2 on 2-3, each on half the batch), 3 steps: the gradient plans
+   0-1, tp2 on 2-3, each on half the batch), 2 steps: the gradient plans
    (a bottom AR, then a top SplitAR), B1 twice a step on every rank at q
    (1, 12, 512, 128) on ranks 0-1 and (2, 6, 512, 128) on ranks 2-3, the
    losses and every part of the state against the box it covers of phase
    5's global value (formed once phase 5's replicas agree bitwise), under
    (b)'s limits.  For (b) and (c) each rank's step split (pack, compute,
    comm into host staging and exchanges, fetch, AdamW), traffic, plan
-   tiers and peak memory; then B1 at both rank shapes against its plain
-   version, its bound and SDPA.
+   tiers and peak memory.  (d) In the same launch, once (c)'s Session is
+   dropped: phase 5's blocks under tp2 x pp2 (one layer a stage; the q/k/v
+   biases left out, since the graph IR cannot microbatch their lift onto
+   the activations; the tied head makes two chunks a device, so the 1F1B
+   timetable is the interleaved one), one step of 4 microbatches of 1 x
+   512 through ``run_schedule``, fetching the loss and every gradient of
+   every microbatch, on ``api.DistAsyncExecutor`` (a real 4-rank pipeline)
+   and then on ``api.DistExecutor`` (the microbatches in turn): bitwise
+   between the two, within phase 5's limits of the stacked
+   ``api.AsyncExecutor`` run of the same program on rank 0's card after
+   the rank runs (whether bitwise is recorded), B1 once a microbatch on
+   every rank at q (1, 6, 512, 128); each rank's split (pack, dispatch
+   loop, comm into staging and exchanges, fetch), traffic, card and host
+   peaks and its ticks' device times, and the overlap 1 - async loop /
+   rank executor's loop.  Then B1 at the three rank shapes against its
+   plain version, its bound and SDPA.
 11. the training line, the elastic line, the pipeline line, the families
    line, the ranks line, the kernels line, then the card line, then the
    result line.
@@ -167,6 +188,7 @@ imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -218,7 +240,9 @@ PP_RUNS = ("torch", "serialized", "async", "async", "serialized", "torch",
 #: published widths: (arch, layers or None for full depth).  RecurrentGemma
 #: keeps one (rec, rec, attn) superblock: its full 10.4 B parameters need
 #: ~167 GB of fp32 params, grads, m and v, more than one 80 GB card.
-TRAIN_ARCHS = (("qwen2-1.5b", None), ("mamba2-370m", None),
+#: Qwen2-1.5B keeps 14 of its 28 layers and Mamba2-370M 24 of its 48, to
+#: keep the whole script inside its 1200 s limit
+TRAIN_ARCHS = (("qwen2-1.5b", 14), ("mamba2-370m", 24),
                ("recurrentgemma-9b", 3))
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 3
 #: kernels vs plain versions over two steps from one init: the losses'
@@ -268,9 +292,13 @@ ROUTING_FLIP_MAX = 0.01
 #: selftest and its case groups at each, then phase 5's program on
 #: DIST_RANKS ranks for DIST_STEPS steps under (b) dp2 x tp2 and (c) the
 #: hsize=2 dp2|tp2 strategy, each rank's B1 launches a step (one a layer),
-#: and the ranks' time limits (s)
-DIST_SWEEP = {2: "comm", 4: "comm,api"}
-DIST_RANKS, DIST_STEPS = 4, 3
+#: then (d) phase 5's blocks under tp2 x pp2 for one step of DIST_PP_MICRO
+#: microbatches, and the ranks' time limits (s).  (b) and (c) take 2 of
+#: phase 5's 3 steps: with (d) added, a whole run of this script at 3 steps
+#: (from a ``git archive``, on an H100 80GB HBM3 at 700 W) took 1220 s,
+#: past the 1200 s limit
+DIST_SWEEP = {2: "comm,async", 4: "comm,api,async,search"}
+DIST_RANKS, DIST_STEPS, DIST_PP_MICRO = 4, 2, 4
 DIST_SWEEP_TIMEOUT, DIST_RUN_TIMEOUT = 180, 660
 
 
@@ -991,7 +1019,7 @@ def b1_at_shape(torch, fa, ref, shape, b, h, kh, seq, hd):
 
 
 #: threads of the phase-5 reference's child process, which runs beside
-#: phases 3 and 4 on the 8-core host
+#: phases 1 to 4 on the 8-core host
 SIM_THREADS = 4
 
 
@@ -1024,8 +1052,8 @@ def simulator_reference_main(path) -> int:
 
 class SimulatorReference:
     """Phase 5's reference step (:func:`simulator_reference_main`) in a
-    child process started early, so that its minutes of host numpy run
-    beside the card's phases 3 and 4; :meth:`result` waits for it.  The
+    child process started first, so that its minutes of host numpy run
+    beside phases 1 to 4; :meth:`result` waits for it.  The
     child is killed if the script ends first."""
 
     def __init__(self, out_dir):
@@ -1099,7 +1127,7 @@ def phase_graph_ir(torch, fa, ref, sim_ref):
     if set(want_grads) != set(ws):
         fail(f"phase 5's reference has gradients {sorted(want_grads)}")
     print(f"  SimulatorExecutor step 1 on the host (a child process with "
-          f"{SIM_THREADS} threads beside phases 3-4): {sim_s:.1f} s, "
+          f"{SIM_THREADS} threads beside phases 1-4): {sim_s:.1f} s, "
           f"waited for {waited:.1f} s here; loss {want_loss:.9e}")
 
     ex = api.TorchExecutor()
@@ -1124,6 +1152,7 @@ def phase_graph_ir(torch, fa, ref, sim_ref):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses, walls, per_step, opt_s = [], [], [], []
+    at_dist = None
     fa.launches = 0
     try:
         for step in range(3):
@@ -1147,6 +1176,14 @@ def phase_graph_ir(torch, fa, ref, sim_ref):
             if step == 0:
                 check_against_simulator("Qwen2-1.5B dp2 x tp2 step 1", r,
                                         want_loss, want_grads)
+            if step + 1 == DIST_STEPS:
+                # phase 10 holds its DIST_STEPS steps on ranks to this state
+                at_dist = {key: {n: api.ShardedTensor(
+                    st.shape, st.annot,
+                    {d: np.array(p) for d, p in st.parts.items()})
+                    for n, st in tree.items()} for key, tree in (
+                        ("weights", sess.weights), ("m", sess.opt_state["m"]),
+                        ("v", sess.opt_state["v"]))}
             parts = ex.times.as_dict()
             print(f"  step {step + 1}: loss {r.loss:.9e}, "
                   f"{walls[-1] * 1e3:.1f} ms{' (profiled)' if profiled else ''}"
@@ -1198,11 +1235,12 @@ def phase_graph_ir(torch, fa, ref, sim_ref):
     print(f"    {IR_LAYERS} launches a step = {IR_LAYERS * timing['ms']:.3f} "
           f"ms of the step")
     timing["launches"] = launches
-    # phase 7 holds its elastic run to this uninterrupted one
+    # phase 7 holds its elastic run to this uninterrupted one, phase 10
+    # its rank runs to the state after step DIST_STEPS
     run = dict(cfg=cfg, graph=prog.graph, feeds=feeds, weights=ws,
                losses=losses,
                final={"weights": sess.weights, "m": sess.opt_state["m"],
-                      "v": sess.opt_state["v"]})
+                      "v": sess.opt_state["v"]}, at_dist=at_dist)
     del sess, ex
     torch.cuda.empty_cache()
 
@@ -1974,6 +2012,45 @@ def runs_differ(want, got) -> list:
             if not np.array_equal(b[name].parts[dev], part)]
 
 
+def timed_schedule(torch, fa, ex, tplan, sched, states, fetches,
+                   around=None):
+    """One timed ``ex.run_schedule(tplan, sched, states, fetches)``, as
+    phases 8 and 10 (d) measure it: the card's cache emptied, its peak,
+    ``ex.times`` and the allocator's counts taken afresh, ``around`` (a
+    context manager, or None) entered just around the run and the device
+    sync.  Returns the results and the run's record: wall, pack, dispatch
+    loop (wall - pack - fetch) and fetch (s), ``ex.times`` whole
+    (``parts``), the card's peak (GiB), the allocator's counts, B1's
+    launches and each microbatch's loss."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch import api
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_stats()
+    ex.times.reset()
+    before = fa.launches
+    with around or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        got = ex.run_schedule(tplan, sched, states, fetches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t = ex.times.as_dict()
+    alloc = {k: torch.cuda.memory_stats().get(k, 0) - alloc0.get(k, 0)
+             for k in ("num_device_alloc", "num_device_free",
+                       "num_alloc_retries", "num_sync_all_streams")}
+    return got, dict(
+        wall_s=wall, pack_s=t["pack"], loop_s=wall - t["pack"] - t["fetch"],
+        fetch_s=t["fetch"], parts=t,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, allocator=alloc,
+        b1_launches=fa.launches - before,
+        loss=[float(np.asarray(api.gather(r[tplan.loss_name])))
+              for r in got])
+
+
 def phase_async_exact():
     """Phase 8 (a): the torch versions of the reference's
     ``async:pipeline/{2,4,8}`` and ``async:train/4`` selftest cases on the
@@ -2113,6 +2190,7 @@ def phase_async(torch, fa, ref):
     the device's concurrency, the ticks' device times, peak memory and the
     host syncs.  Returns B1's launches and timings at this path's shape
     and the numbers of (b)."""
+    import contextlib
     import warnings
 
     import numpy as np
@@ -2121,6 +2199,22 @@ def phase_async(torch, fa, ref):
     from repro_torch import api
     from repro_torch.configs import get_config
     from repro_torch.models.graph_block import block_program
+
+    @contextlib.contextmanager
+    def profiled_run(box):
+        """The profiled run: ``torch.profiler`` on, host syncs warned of;
+        ``box`` gets the profile and the sync warnings."""
+        with warnings.catch_warnings(record=True) as caught, \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        box.update(prof=prof, syncs=[w for w in caught if "synchroniz"
+                                     in str(w.message).lower()])
 
     print("== phase 8: the async MPMD pipeline executor (one stream per "
           "virtual stage, one for the channels)")
@@ -2168,48 +2262,20 @@ def phase_async(torch, fa, ref):
             fail(f"async: {label} lowered {dispatches} attention classes "
                  f"on B1 and {lw.stats.ref_dispatches} plain, expected "
                  f"{PP_LAYERS} on B1")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        alloc0 = torch.cuda.memory_stats()
-        ex.times.reset()
-        before = fa.launches
         profiled = kind == "profiled"
-        syncs: list = []
-        t0 = time.perf_counter()
-        if profiled:
-            with warnings.catch_warnings(record=True) as caught, \
-                    profile(activities=[ProfilerActivity.CPU,
-                                        ProfilerActivity.CUDA]) as prof:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    got = ex.run_schedule(tplan, sched, states, fetches)
-                    torch.cuda.synchronize()
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-            syncs = [w for w in caught
-                     if "synchroniz" in str(w.message).lower()]
-        else:
-            got = ex.run_schedule(tplan, sched, states, fetches)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = fa.launches - before
-        peak = torch.cuda.max_memory_allocated()
-        t = ex.times.as_dict()
-        loop = wall - t["pack"] - t["fetch"]
-        alloc = {k: torch.cuda.memory_stats().get(k, 0) - alloc0.get(k, 0)
-                 for k in ("num_device_alloc", "num_device_free",
-                           "num_alloc_retries", "num_sync_all_streams")}
-        rec = dict(executor=kind, wall_s=wall, pack_s=t["pack"], loop_s=loop,
-                   fetch_s=t["fetch"], peak_gib=peak / 2**30,
-                   b1_launches=launched, allocator=alloc,
-                   loss=[float(np.asarray(api.gather(r[tplan.loss_name])))
-                         for r in got])
-        print(f"  {label}: wall {wall:.3f} s = pack {t['pack']:.3f} + "
-              f"dispatch loop {loop:.3f} + fetch {t['fetch']:.3f} s; B1 "
+        box: dict = {}
+        got, rec = timed_schedule(torch, fa, ex, tplan, sched, states,
+                                  fetches, profiled_run(box) if profiled
+                                  else None)
+        rec["executor"] = kind
+        wall, loop, launched = rec["wall_s"], rec["loop_s"], \
+            rec["b1_launches"]
+        peak = rec["peak_gib"] * 2**30
+        print(f"  {label}: wall {wall:.3f} s = pack {rec['pack_s']:.3f} + "
+              f"dispatch loop {loop:.3f} + fetch {rec['fetch_s']:.3f} s; B1 "
               f"launches {launched} (dispatches {dispatches} x "
-              f"{PP_MICRO}); peak {peak / 2**30:.2f} GiB; allocator "
-              f"{alloc}; losses "
+              f"{PP_MICRO}); peak {rec['peak_gib']:.2f} GiB; allocator "
+              f"{rec['allocator']}; losses "
               + ", ".join(f"{x:.9e}" for x in rec["loss"]))
         if launched != dispatches * PP_MICRO:
             fail(f"async: {label} launched B1 {launched} times, expected "
@@ -2249,13 +2315,13 @@ def phase_async(torch, fa, ref):
                           f"{mb} {ph}: {a:.1f}..{b:.1f} | {c:.1f}..{d:.1f}"
                           for mb, ph, a, b, c, d in tk))
         if profiled:
-            busy, ksum, copies, span, nk = device_activity(prof)
+            busy, ksum, copies, span, nk = device_activity(box["prof"])
             if not nk:
                 fail("async: torch.profiler saw no kernel on the device")
             rec.update(kernel_busy_ms=busy, kernel_sum_ms=ksum,
                        copy_ms=copies, device_span_ms=span, kernels=nk)
             where: dict = {}
-            for w in syncs:
+            for w in box["syncs"]:
                 key = f"{Path(w.filename).name}:{w.lineno}"
                 where[key] = where.get(key, 0) + 1
             rec["host_syncs"] = where
@@ -2461,21 +2527,23 @@ def flat_parts(st):
 
 
 def dist_reference(ir_run, out_dir) -> str:
-    """Phase 5's losses and final weights, AdamW m and v, each leaf's
-    parts in device order (``flat_parts``), one ``.npy`` file each (phase
-    10's rank 0 maps them), with each leaf's annotation; written once;
-    returns the directory."""
+    """Phase 5's first ``DIST_STEPS`` losses and its weights, AdamW m and
+    v after step ``DIST_STEPS``, each leaf's parts in device order
+    (``flat_parts``), one ``.npy`` file each (phase 10's rank 0 maps
+    them), with each leaf's annotation; written once; returns the
+    directory."""
     import numpy as np
     t0 = time.perf_counter()
     out = Path(out_dir)
-    np.save(out / "losses.npy", np.asarray(ir_run["losses"], np.float64))
+    np.save(out / "losses.npy",
+            np.asarray(ir_run["losses"][:DIST_STEPS], np.float64))
     names = {}
-    for key, state in ir_run["final"].items():
+    for key, state in ir_run["at_dist"].items():
         for i, (name, st) in enumerate(sorted(state.items())):
             np.save(out / f"{key}-{i}.npy", flat_parts(st))
             names[f"{key}|{name}"] = [f"{key}-{i}.npy", repr(st.annot)]
     (out / "names.json").write_text(json.dumps(names))
-    print(f"  phase 5's final state written for phase 10 "
+    print(f"  phase 5's state after step {DIST_STEPS} written for phase 10 "
           f"({time.perf_counter() - t0:.1f} s)")
     return str(out)
 
@@ -2594,17 +2662,136 @@ def rank_steps(torch, fa, mesh, prog, cfg):
     return sess, out
 
 
+def pipeline_ticks(lw) -> list:
+    """A rank's ticks of the last run: (virtual stage, microbatch, phase,
+    device start and end in ms from the first tick's start)."""
+    first = lw.last_ticks[0].start
+    return [(r.stage, r.microbatch, r.phase,
+             first.elapsed_time(r.start), first.elapsed_time(r.end))
+            for r in lw.last_ticks]
+
+
+def rank_pipeline(torch, fa, mesh, cfg):
+    """Phase 10 (d) on one rank: phase 5's blocks under tp2 x pp2 (without
+    the q/k/v biases, which the graph IR cannot microbatch), weights and
+    feeds from seed 0, one interleaved 1F1B step of ``DIST_PP_MICRO``
+    microbatches through ``run_schedule`` on ``DistAsyncExecutor``, then on
+    ``DistExecutor``, fetching the loss and every gradient.  Returns this
+    rank's numbers; rank 0 also holds the two runs against each other
+    (bitwise) and against the stacked ``AsyncExecutor`` run of the same
+    program, feeds and weights on its card (phase 5's limits)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.models.graph_block import block_program
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, qkv_bias=False)
+    prog = block_program(cfg, batch=IR_BATCH, seq=IR_SEQ,
+                         n_layers=IR_LAYERS, dp=1, tp=2, pp=2)
+    rng = np.random.default_rng(0)
+    feeds = block_feeds(cfg, rng, IR_BATCH, IR_SEQ)
+    ws = block_weights(prog, rng)
+    n_params = sum(w.size for w in ws.values())
+    holder = api.Session(prog, 0, executor=api.SimulatorExecutor())
+    holder.load(ws)
+    del ws
+    tplan = prog.compile_train(0, num_microbatches=DIST_PP_MICRO)
+    fetches = [tplan.loss_name] + [tplan.grad_map[t.name]
+                                   for t in tplan.graph.parameters()]
+    states = microbatch_states(api, tplan, feeds, holder.weights)
+    sched = tplan.schedule(DIST_PP_MICRO, "interleaved")
+    out = dict(params=int(n_params), ticks=len(sched.ticks),
+               v=tplan.virtual_stages_per_device,
+               setup_s=time.perf_counter() - t0, runs={})
+    launch = fa.flash_attention
+    shapes = set()
+
+    def recorded(q, k, v, **kw):     # the wrapper counts the launch
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return launch(q, k, v, **kw)
+    fa.flash_attention = recorded
+    got = {}
+    try:
+        for label, ex in (("async", api.DistAsyncExecutor(mesh)),
+                          ("dist", api.DistExecutor(mesh))):
+            lw = ex.lowered(tplan, fetches) if label == "async" else \
+                ex.lowered(tplan, fetches, DIST_PP_MICRO)
+            shapes.clear()
+            # every rank starts the timed run together (rank 0 may still be
+            # comparing (c) when the others arrive)
+            dist.barrier()
+            host = HostPeak()
+            res, rec = timed_schedule(torch, fa, ex, tplan, sched, states,
+                                      fetches, host)
+            traffic = ex.traffic()
+            rec.update(b1_shapes=sorted(shapes),
+                       dispatches=lw.stats.kernel_dispatches,
+                       plain_dispatches=lw.stats.ref_dispatches,
+                       host_peak_gib=host.peak,
+                       traffic={k: getattr(traffic, k) for k in (
+                           "p2p_messages", "p2p_bytes", "collectives",
+                           "staged_bytes")})
+            if label == "async":
+                rec["programs"] = sorted(f"{ph} {st}" for st, ph in
+                                         lw.programs)
+                rec["ticks"] = pipeline_ticks(lw)
+            out["runs"][label] = rec
+            if mesh.rank == 0:
+                got[label] = res
+            del res
+    finally:
+        fa.flash_attention = launch
+    if mesh.rank != 0:
+        return out
+    t0 = time.perf_counter()
+    bad = runs_differ(got["async"], got["dist"])
+    out["bitwise"], out["differ"] = not bad, [list(x) for x in bad[:6]]
+    del got["async"]
+    # the stacked AsyncExecutor of phase 8 on the same program, feeds and
+    # weights, its 4 virtual devices as rows on this rank's card
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    want = api.AsyncExecutor().run_schedule(tplan, sched, states, fetches)
+    out["stacked_s"] = time.perf_counter() - t1
+    lrel = [abs(a - b) / abs(b) for a, b in zip(
+        out["runs"]["dist"]["loss"],
+        [float(np.asarray(api.gather(r[tplan.loss_name]))) for r in want])]
+    bad_grads, same = [], [lrel == [0.0] * len(lrel)]
+
+    def pairs():
+        for j, (a, b) in enumerate(zip(got["dist"], want)):
+            for name in fetches[1:]:
+                g = torch.from_numpy(flat_parts(a[name])).cuda()
+                w = torch.from_numpy(flat_parts(b[name])).cuda()
+                if not torch.allclose(g, w, atol=GRAD_ATOL, rtol=GRAD_RTOL):
+                    bad_grads.append(f"{j}:{name}")
+                same.append(torch.equal(g, w))
+                yield f"{j}:{name}", g, w
+    worst = worst_normwise(pairs())
+    out.update(stacked_loss_rel=lrel, stacked_bad=bad_grads[:6],
+               stacked_normwise=worst, stacked_bitwise=all(same),
+               compare_s=time.perf_counter() - t0)
+    return out
+
+
 def dist_rank_main(argv=None) -> int:
-    """One rank of phase 10 (b) and (c), started by
+    """One rank of phase 10 (b), (c) and (d), started by
     ``runtime.harness.run_ranks``.  (b): phase 5's program, weights and
-    feeds from seed 0, ``DIST_STEPS`` steps on ``DistExecutor``; rank 0
-    holds its final weights, m and v against phase 5's (``--ref``), part
-    by part (every replica), under the same annotations.  (c): (b)'s
-    Session dropped and its card memory freed, the same blocks under the
-    hsize=2 ``selftest.hetero_block_strategy`` (dp2 on devices 0-1, tp2 on
-    2-3), ``DIST_STEPS`` steps; rank 0 holds every part of its final
-    state against the box it covers in phase 5's global value, formed from
-    phase 5's parts once their replicas agree bitwise.  Prints one
+    feeds from seed 0, ``DIST_STEPS`` steps on ``DistExecutor``; its final
+    weights, m and v against phase 5's (``--ref``), part by part (every
+    replica), under the same annotations.  (c): (b)'s Session dropped and
+    its card memory freed, the same blocks under the hsize=2
+    ``selftest.hetero_block_strategy`` (dp2 on devices 0-1, tp2 on 2-3),
+    ``DIST_STEPS`` steps; every part of its final state against the box it
+    covers in phase 5's global value, formed from phase 5's parts once
+    their replicas agree bitwise.  Every rank holds the whole state, so
+    each compares a share of the leaves and rank 0 combines the shares.
+    (d): (c)'s Session
+    dropped and host memory trimmed, :func:`rank_pipeline`.  Prints one
     ``DIST_RANK_JSON {...}`` line."""
     import argparse
     import gc
@@ -2631,9 +2818,18 @@ def dist_rank_main(argv=None) -> int:
     mesh = make_runtime_mesh(backend=args.backend, device=args.device)
     cfg = get_config("qwen2-1.5b")
     ref = Path(args.ref)
-    names = json.loads((ref / "names.json").read_text()) \
-        if mesh.rank == 0 else {}
+    names = json.loads((ref / "names.json").read_text())
     out = dict(rank=mesh.rank, device=str(mesh.device))
+
+    def share(tree):
+        """This rank's share of a state tree's leaves to compare."""
+        return [(n, st) for i, (n, st) in enumerate(sorted(tree.items()))
+                if i % mesh.world == mesh.rank]
+
+    def gathered(value) -> list:
+        every = [None] * mesh.world
+        dist.all_gather_object(every, value)
+        return every
 
     # (b) phase 5's program: dp2 x tp2
     prog = block_program(cfg, batch=IR_BATCH, seq=IR_SEQ, n_layers=IR_LAYERS,
@@ -2641,33 +2837,39 @@ def dist_rank_main(argv=None) -> int:
     sess, out["b"] = rank_steps(torch, fa, mesh, prog, cfg)
     steps = out["b"]["steps"]
     annots5 = {name: st.annot for name, st in sess.weights.items()}
+    # every leaf's parts in device order on both sides, as phase 7
+    # compares: a replica that drifted from its twin counts.  Each rank
+    # first returns its cached card memory: the rank comparing the
+    # embedding needs about 31 GiB of the card for it
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bitwise = [np.array_equal([s["loss"] for s in steps],
+                              np.load(ref / "losses.npy"))]
+
+    def pairs(key, got):
+        for name, st in share(got):
+            path, annot = names[f"{key}|{name}"]
+            if repr(st.annot) != annot:
+                fail(f"rank path: {key} {name} ends under "
+                     f"{st.annot}, phase 5's under {annot}")
+            have = torch.from_numpy(flat_parts(st)).cuda()
+            want = torch.from_numpy(np.load(
+                ref / path, mmap_mode="r")[...]).cuda()
+            bitwise.append(torch.equal(have, want))
+            yield name, have, want
+
+    worst = {}
+    for key in ("weights", "m", "v"):
+        got = sess.weights if key == "weights" else sess.opt_state[key]
+        # the key biases' m and v are left out, as phase 7 does
+        worst[key] = worst_normwise(
+            pairs(key, got), skip={n for n in got if key != "weights"
+                                   and n.endswith("/bk")})
+    every = gathered((worst, all(bitwise)))
     if mesh.rank == 0:
-        # every leaf's parts in device order on both sides, as phase 7
-        # compares: a replica that drifted from its twin counts
-        t0 = time.perf_counter()
-        bitwise = [np.array_equal([s["loss"] for s in steps],
-                                  np.load(ref / "losses.npy"))]
-
-        def pairs(key, got):
-            for name, st in got.items():
-                path, annot = names[f"{key}|{name}"]
-                if repr(st.annot) != annot:
-                    fail(f"rank path: {key} {name} ends under "
-                         f"{st.annot}, phase 5's under {annot}")
-                have = torch.from_numpy(flat_parts(st)).cuda()
-                want = torch.from_numpy(np.load(
-                    ref / path, mmap_mode="r")[...]).cuda()
-                bitwise.append(torch.equal(have, want))
-                yield name, have, want
-
-        worst = {}
-        for key in ("weights", "m", "v"):
-            got = sess.weights if key == "weights" else sess.opt_state[key]
-            # the key biases' m and v are left out, as phase 7 does
-            worst[key] = worst_normwise(
-                pairs(key, got), skip={n for n in got if key != "weights"
-                                       and n.endswith("/bk")})
-        out["b"].update(normwise=worst, bitwise=all(bitwise),
+        out["b"].update(normwise={k: max(w[k] for w, _ in every)
+                                  for k in worst},
+                        bitwise=all(b for _, b in every),
                         compare_s=time.perf_counter() - t0)
     del sess, prog
     gc.collect()
@@ -2683,55 +2885,66 @@ def dist_rank_main(argv=None) -> int:
     out["c"]["grad_plans"] = {
         kind: sorted(w for w, k in kinds.items() if k[2] == kind)
         for kind in sorted({k[2] for k in kinds.values()})}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    replicas_bitwise, bitwise = [], []
+
+    def global_pairs(key, got):
+        """(name, every part of the hetero state in device order, the
+        boxes they cover of phase 5's global value)."""
+        for name, st in share(got):
+            annot, shape = annots5[name], st.shape
+            path, want_annot = names[f"{key}|{name}"]
+            if repr(annot) != want_annot:
+                fail(f"rank path: phase 5's {key} {name} under "
+                     f"{want_annot}, not {annot}")
+            flat = torch.from_numpy(np.load(
+                ref / path, mmap_mode="r")[...]).cuda()
+            full = torch.empty(shape, dtype=flat.dtype, device=flat.device)
+            seen, at = {}, 0
+            for dev in sorted(annot.devices):
+                box = annot.device_box(dev, shape)
+                n = int(np.prod(box_shape(box)))
+                part = flat[at:at + n].view(box_shape(box))
+                at += n
+                if box in seen:
+                    replicas_bitwise.append(torch.equal(part, seen[box]))
+                    if not replicas_bitwise[-1]:
+                        fail(f"rank path: phase 5's {key} {name} dev "
+                             f"{dev} differs from its replica")
+                else:
+                    seen[box] = part
+                    full[tuple(slice(a, b) for a, b in box)] = part
+            del flat, seen
+            have = torch.from_numpy(flat_parts(st)).cuda()
+            want = torch.cat([
+                full[tuple(slice(a, b) for a, b in
+                           st.annot.device_box(dev, shape))].reshape(-1)
+                for dev in sorted(st.parts)])
+            del full
+            bitwise.append(torch.equal(have, want))
+            yield name, have, want
+
+    worst = {}
+    for key in ("weights", "m", "v"):
+        got = sess.weights if key == "weights" else sess.opt_state[key]
+        worst[key] = worst_normwise(
+            global_pairs(key, got), skip={n for n in got if key !=
+                                          "weights" and n.endswith("/bk")})
+    every = gathered((worst, all(bitwise), len(replicas_bitwise)))
     if mesh.rank == 0:
-        t0 = time.perf_counter()
-        replicas_bitwise, bitwise = [], []
-
-        def global_pairs(key, got):
-            """(name, every part of the hetero state in device order, the
-            boxes they cover of phase 5's global value)."""
-            for name, st in got.items():
-                annot, shape = annots5[name], st.shape
-                path, want_annot = names[f"{key}|{name}"]
-                if repr(annot) != want_annot:
-                    fail(f"rank path: phase 5's {key} {name} under "
-                         f"{want_annot}, not {annot}")
-                flat = torch.from_numpy(np.load(
-                    ref / path, mmap_mode="r")[...]).cuda()
-                full = torch.empty(shape, dtype=flat.dtype, device=flat.device)
-                seen, at = {}, 0
-                for dev in sorted(annot.devices):
-                    box = annot.device_box(dev, shape)
-                    n = int(np.prod(box_shape(box)))
-                    part = flat[at:at + n].view(box_shape(box))
-                    at += n
-                    if box in seen:
-                        replicas_bitwise.append(torch.equal(part, seen[box]))
-                        if not replicas_bitwise[-1]:
-                            fail(f"rank path: phase 5's {key} {name} dev "
-                                 f"{dev} differs from its replica")
-                    else:
-                        seen[box] = part
-                        full[tuple(slice(a, b) for a, b in box)] = part
-                del flat, seen
-                have = torch.from_numpy(flat_parts(st)).cuda()
-                want = torch.cat([
-                    full[tuple(slice(a, b) for a, b in
-                               st.annot.device_box(dev, shape))].reshape(-1)
-                    for dev in sorted(st.parts)])
-                del full
-                bitwise.append(torch.equal(have, want))
-                yield name, have, want
-
-        worst = {}
-        for key in ("weights", "m", "v"):
-            got = sess.weights if key == "weights" else sess.opt_state[key]
-            worst[key] = worst_normwise(
-                global_pairs(key, got), skip={n for n in got if key !=
-                                              "weights" and n.endswith("/bk")})
-        out["c"].update(normwise=worst, bitwise=all(bitwise),
-                        replicas_checked=len(replicas_bitwise),
+        out["c"].update(normwise={k: max(w[k] for w, _, _ in every)
+                                  for k in worst},
+                        bitwise=all(b for _, b, _ in every),
+                        replicas_checked=sum(n for _, _, n in every),
                         compare_s=time.perf_counter() - t0)
+    del sess, prog, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c"]["host_left_gib"] = trim_host()
+
+    # (d) the blocks under tp2 x pp2: a real pipeline across the ranks
+    out["d"] = rank_pipeline(torch, fa, mesh, cfg)
     print("DIST_RANK_JSON " + json.dumps(out), flush=True)
     dist.destroy_process_group()
     return 0
@@ -2830,6 +3043,96 @@ def check_rank_run(ranks, run, what, ir_losses, want_shapes):
     return losses, lrel
 
 
+def check_pipeline(ranks, total_mem):
+    """(d): each rank's split, traffic, peaks and ticks; B1 once a
+    microbatch on every rank at q (1, 6, 512, 128) in both runs, none
+    plain; the ranks' losses equal; rank 0's checks (the two rank
+    executors bitwise, the stacked run within phase 5's limits); the four
+    ranks' peaks under the card's memory and the host's 96 GiB.  Returns
+    the overlap on ranks and the launches."""
+    hd = 128
+    want_shape = [[[1, 6, IR_SEQ, hd], [1, 1, IR_SEQ, hd]]]
+    d0 = ranks[0]["d"]
+    print(f"  (d) phase 5's blocks (q/k/v biases left out) under tp2 x pp2, "
+          f"{d0['params'] / 1e6:.1f} M parameters, one interleaved 1F1B step "
+          f"(v={d0['v']}, {d0['ticks']} ticks) of {DIST_PP_MICRO} "
+          f"microbatches of 1 x {IR_SEQ} on DistAsyncExecutor, then "
+          f"DistExecutor; setup {d0['setup_s']:.1f} s a rank")
+    launches = 0
+    for r in ranks:
+        x = r["d"]
+        for label in ("async", "dist"):
+            run = x["runs"][label]
+            launches += run["b1_launches"]
+            tr, t = run["traffic"], run["parts"]
+            print(f"    rank {r['rank']} {label}: wall {run['wall_s']:.3f} s "
+                  f"= pack {run['pack_s']:.3f} + dispatch loop "
+                  f"{run['loop_s']:.3f} (compute {t['compute']:.3f}, comm "
+                  f"{t['comm']:.3f}: staging {t['staging']:.3f}, "
+                  f"exchanges {t['collective']:.3f}) + fetch "
+                  f"{run['fetch_s']:.3f} s; B1 {run['b1_launches']} at "
+                  f"{run['b1_shapes']} (dispatches {run['dispatches']}); "
+                  f"{tr['p2p_messages']} messages, {tr['p2p_bytes'] / 1e6:.1f}"
+                  f" MB, {tr['collectives']} collectives, "
+                  f"{tr['staged_bytes'] / 1e6:.1f} MB staged; card peak "
+                  f"{run['peak_gib']:.2f} GiB, host peak "
+                  f"{run['host_peak_gib']:.2f} GiB")
+            if run["b1_launches"] != DIST_PP_MICRO or \
+                    run["dispatches"] != 1 \
+                    or run["plain_dispatches"] or \
+                    run["b1_shapes"] != want_shape:
+                fail(f"(d) rank {r['rank']} {label}: B1 launched "
+                     f"{run['b1_launches']} times at {run['b1_shapes']} "
+                     f"(dispatches {run['dispatches']}, plain "
+                     f"{run['plain_dispatches']}); expected "
+                     f"{DIST_PP_MICRO} at {want_shape}, none plain")
+        ticks = x["runs"]["async"]["ticks"]
+        print(f"    rank {r['rank']} programs {x['runs']['async']['programs']}"
+              f"; ticks (vstage mb phase: device ms from its first tick) "
+              + "; ".join(f"{st} {mb} {ph}: {a:.1f}..{b:.1f}"
+                          for st, mb, ph, a, b in ticks))
+    losses = d0["runs"]["async"]["loss"]
+    if any(r["d"]["runs"][label]["loss"] != losses for r in ranks
+           for label in ("async", "dist")) or not all(
+               math.isfinite(v) for v in losses):
+        fail(f"(d): the ranks' losses differ or are not finite: {losses}")
+    loops = {label: [r["d"]["runs"][label]["loop_s"] for r in ranks]
+             for label in ("async", "dist")}
+    overlap = 1 - max(loops["async"]) / max(loops["dist"])
+    print(f"    overlap on ranks 1 - async loop / DistExecutor loop (the "
+          f"slowest rank's) = 1 - {max(loops['async']):.3f} / "
+          f"{max(loops['dist']):.3f} = {overlap:.4f}; by rank "
+          + ", ".join(f"{1 - a / b:.4f}" for a, b in zip(loops["async"],
+                                                        loops["dist"])))
+    err, name = d0["stacked_normwise"]
+    print(f"    losses {losses}; the two rank executors "
+          f"{'bitwise' if d0['bitwise'] else 'differ at ' + str(d0['differ'])}"
+          f"; against the stacked AsyncExecutor: loss rel "
+          + ", ".join(f"{e:.1e}" for e in d0["stacked_loss_rel"])
+          + f" (rtol {LOSS_RTOL:.0e}), gradients outside atol {GRAD_ATOL:.0e}"
+          f" rtol {GRAD_RTOL:.0e}: {d0['stacked_bad'] or 'none'}, worst "
+          f"normwise {err:.2e} ({name}; limit {GRAD_NORM_RTOL:.0e}); "
+          f"{'bitwise' if d0['stacked_bitwise'] else 'not bitwise'} "
+          f"(the stacked run {d0['stacked_s']:.1f} s, with the comparisons "
+          f"{d0['compare_s']:.1f} s)")
+    if not d0["bitwise"]:
+        fail(f"(d): DistAsyncExecutor differs from DistExecutor at "
+             f"{d0['differ']}")
+    if max(d0["stacked_loss_rel"]) > LOSS_RTOL or d0["stacked_bad"] or \
+            err > GRAD_NORM_RTOL:
+        fail("(d): the rank pipeline disagrees with the stacked "
+             "AsyncExecutor")
+    card = sum(max(r["d"]["runs"][lb]["peak_gib"] for lb in ("async", "dist"))
+               for r in ranks)
+    host = sum(max(r["d"]["runs"][lb]["host_peak_gib"]
+                   for lb in ("async", "dist")) for r in ranks)
+    print(f"    four ranks' peaks summed: card {card:.2f} GiB of "
+          f"{total_mem / 2**30:.2f}, host {host:.2f} GiB of 96")
+    if card * 2**30 >= total_mem or host >= 96:
+        fail(f"(d): peaks card {card:.2f} GiB, host {host:.2f} GiB")
+    return overlap, launches
+
+
 def phase_dist(torch, fa, ref, ref_state, ir_losses):
     """Phase 10: ranks sharing the card.  (a) The selftest at
     ``DIST_SWEEP`` ranks over gloo (the comm cases, and at 4 ranks the api
@@ -2876,7 +3179,12 @@ def phase_dist(torch, fa, ref, ref_state, ir_losses):
                       + (f"; gradient plans "
                          f"{sorted(set(c['grad_comms'].values()))}"
                          if "grad_comms" in c else "")
-                      + (f"; {c['kinds']}" if "kinds" in c else ""))
+                      + (f"; {c['kinds']}" if "kinds" in c else "")
+                      + (f"; winner {c['winner']}, agreement "
+                         f"{c['agreement']:.2f}, {c['ranks_agree']} ranks "
+                         f"agree" if "winner" in c else "")
+                      + (f"; channels {c['channel_kinds']}"
+                         if "channel_kinds" in c else ""))
             else:
                 print(f"    {key:26s} ok")
         if bad or not rep["ok"] or rep["device"] != "cuda":
@@ -2904,8 +3212,9 @@ def phase_dist(torch, fa, ref, ref_state, ir_losses):
           f"seq {IR_SEQ}, on {DIST_RANKS} ranks sharing the card "
           f"(DistExecutor, gloo), {DIST_STEPS} steps under (b) dp2 x tp2, "
           f"then (c) the hsize=2 dp2|tp2 strategy (dp2 on devices 0-1, tp2 "
-          f"on 2-3, each on half the batch) in the same launch; each rank "
-          f"rebuilds phase 5's weights and feeds from seed 0")
+          f"on 2-3, each on half the batch), then (d) one pipelined step "
+          f"under tp2 x pp2 in the same launch; each rank rebuilds phase "
+          f"5's weights and feeds from seed 0")
     print(f"  this process holds {trim_host():.2f} GiB of host memory "
           f"before the launch")
     t0 = time.perf_counter()
@@ -2934,6 +3243,8 @@ def phase_dist(torch, fa, ref, ref_state, ir_losses):
                                      [tp] * DIST_RANKS)
     c_losses, c_rel = check_rank_run(ranks, "c", "rank path (c)", ir_losses,
                                      [dp, dp, tp, tp])
+    overlap, d_launches = check_pipeline(
+        ranks, torch.cuda.get_device_properties(0).total_memory)
     print(f"  ranks' run {run_s:.1f} s")
     # B1 at this path's shapes: (b)'s and (c)'s tp2 ranks take q
     # (2, 6, 512, 128); (c)'s dp2 ranks q (1, 12, 512, 128)
@@ -2951,13 +3262,18 @@ def phase_dist(torch, fa, ref, ref_state, ir_losses):
                             IR_SEQ, 128)
     timing_dp["launches"] = sum(r["c"]["launches"] for r in ranks
                                 if r["rank"] < 2)
+    shape = (f"B1 H6 K1 S{IR_SEQ} D128 causal fp32 (graph-IR Qwen2-1.5B "
+             f"under tp2 x pp2 on {DIST_RANKS} ranks sharing the card: a "
+             f"rank's microbatch, DistAsyncExecutor and DistExecutor)")
+    timing_pp = b1_at_shape(torch, fa, ref, shape, 1, 6, 1, IR_SEQ, 128)
+    timing_pp["launches"] = d_launches
     t_phase = time.perf_counter() - t_phase
     print(f"  phase 10: {t_phase:.1f} s")
-    return [timing, timing_dp], {
+    return [timing, timing_dp, timing_pp], {
         "sweep": sweep, "ranks": ranks, "losses": {"b": b_losses,
                                                    "c": c_losses},
-        "loss_rel": {"b": b_rel, "c": c_rel}, "run_s": run_s,
-        "phase_s": t_phase}
+        "loss_rel": {"b": b_rel, "c": c_rel}, "overlap_d": overlap,
+        "run_s": run_s, "phase_s": t_phase}
 
 
 def main() -> int:
@@ -2977,6 +3293,11 @@ def main() -> int:
     from repro_torch.kernels import policy, ref
     from repro_torch.kernels import rglru_scan as rk
     from repro_torch.kernels import ssd_scan as sk
+
+    # phase 5's host-side reference starts first: it needs no card and is
+    # the longest thing that runs beside phases 1-4
+    sim_dir = tempfile.TemporaryDirectory(prefix="phase5-sim-")
+    sim_ref = SimulatorReference(sim_dir.name)
 
     print("== phase 1: device")
     card = card_line()
@@ -3006,9 +3327,6 @@ def main() -> int:
     if any(s.startswith("rglru_scan:") for s in spills):
         fail("the RG-LRU kernel spills registers")
 
-    sim_dir = tempfile.TemporaryDirectory(prefix="phase5-sim-")
-    sim_ref = SimulatorReference(sim_dir.name)
-
     print("== phase 3: kernels vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     fa_worst, fa_t = phase_attention(torch, fa, ref, gen)
@@ -3030,7 +3348,7 @@ def main() -> int:
     total["flash"] += elastic["launches"]
     ref_dir = tempfile.TemporaryDirectory(prefix="phase5-")
     ref_state = dist_reference(ir_run, ref_dir.name)
-    ir_losses = ir_run["losses"]
+    ir_losses = ir_run["losses"][:DIST_STEPS]
     del ir_run
     pp_b1, pipeline = phase_async(torch, fa, ref)
     total["flash"] += pp_b1["launches"]

@@ -31,9 +31,11 @@ the virtual-device numpy spec, ``TorchExecutor`` runs every virtual device
 as one row of stacked buffers on one torch device (``runtime.program``),
 ``AsyncExecutor`` runs the same rows as one program per pipeline stage
 over the explicit timetable, each stage on its own CUDA stream
-(``runtime.async_program``), and ``DistExecutor`` runs each device on its
-own ``torch.distributed`` rank (``runtime.dist_program``) — bit-exact
-against each other on exactly representable data.
+(``runtime.async_program``), ``DistExecutor`` runs each device on its
+own ``torch.distributed`` rank (``runtime.dist_program``), and
+``DistAsyncExecutor`` runs the per-stage programs there, one pipeline
+stage per rank (``runtime.dist_async_program``) — bit-exact against each
+other on exactly representable data.
 """
 
 from repro_torch.core.annotations import (DG, DS, DUP, PARTIAL, HSPMD, replicated,
@@ -56,8 +58,8 @@ from repro_torch.core.topology import (NvlinkIbTopology, Topology,
 
 from repro_torch.runtime.async_program import AsyncExecutor
 
-from .executors import (DistExecutor, Executor, SimulatorExecutor,
-                        TorchExecutor, get_executor)
+from .executors import (DistAsyncExecutor, DistExecutor, Executor,
+                        SimulatorExecutor, TorchExecutor, get_executor)
 from .program import CompiledPlan, CompileError, CostEstimate, Program
 from .session import RunResult, Session, TrainResult
 from .strategy import (Strategy, StrategyError, data_parallel_strategy,
@@ -69,7 +71,7 @@ estimate_switch = plan_tensor_switch
 
 __all__ = [
     "DG", "DS", "DUP", "PARTIAL", "HSPMD", "replicated", "spmd",
-    "AsyncExecutor", "DistExecutor",
+    "AsyncExecutor", "DistAsyncExecutor", "DistExecutor",
     "CommPlan", "CompileError", "CompiledPlan", "CostEstimate",
     "DeductionError", "DeductionReport", "ExecItem", "ExecutableGraph",
     "Executor", "GradError", "Graph", "MicrobatchError",

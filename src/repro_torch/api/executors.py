@@ -1,9 +1,11 @@
 """Pluggable executors: run a CompiledPlan's per-device ExecItems.
 
 The :class:`Executor` protocol is the seam between planning and
-execution.  Four implementations ship (the per-stage ``AsyncExecutor``
+execution.  Five implementations ship (the per-stage ``AsyncExecutor``
 lives in ``runtime.async_program``; :class:`DistExecutor` runs each
-logical device on its own ``torch.distributed`` rank):
+logical device on its own ``torch.distributed`` rank, and
+:class:`DistAsyncExecutor` runs the per-stage programs there, one
+pipeline stage per rank):
 
 * :class:`SimulatorExecutor` — interprets the specialized per-device
   programs with numpy over the virtual-device simulator
@@ -48,6 +50,7 @@ from repro_torch.core.op_semantics import local_apply, result_dtype, stacked_app
 from repro_torch.core.schedule import (SCHEDULES, PipelineSchedule, ScheduleError,
                                        assign_stages)
 from repro_torch.core.simulator import ShardedTensor, apply_plan
+from repro_torch.runtime.async_program import AsyncExecutor
 
 from .program import CompiledPlan
 
@@ -379,18 +382,8 @@ class DistExecutor(TorchExecutor):
     name = "dist"
 
     def __init__(self, mesh=None, *, device=None):
-        import torch
-
         from repro_torch.runtime.dist_program import RankRunTimes
-        if mesh is None:
-            from repro_torch.device import resolve_device
-            from repro_torch.launch.mesh import make_runtime_mesh
-            resolve_device(device)       # no GPU and no "cpu": raise first
-            mesh = make_runtime_mesh(device=device)
-        elif device is not None and \
-                mesh.device.type != torch.device(device).type:
-            raise ValueError(f"device {device!r} disagrees with the mesh's "
-                             f"{mesh.device}")
+        mesh = _rank_mesh(mesh, device)
         super().__init__(mesh.device)
         self.mesh = mesh
         self.times = RankRunTimes()
@@ -413,29 +406,92 @@ class DistExecutor(TorchExecutor):
         """This rank's traffic over every run so far (``LoweringStats``:
         point-to-point messages and bytes, collectives, bytes staged),
         the comm plans' and the fetches' together."""
-        from repro_torch.runtime.lowering import LoweringStats
-        total = LoweringStats()
-        for stats in self._traffic:
-            for name in ("p2p_messages", "p2p_bytes", "collectives",
-                         "staged_bytes"):
-                setattr(total, name,
-                        getattr(total, name) + getattr(stats, name))
-        return total
+        return _traffic_total(self._traffic)
+
+
+class DistAsyncExecutor(AsyncExecutor):
+    """Async MPMD execution across ``torch.distributed`` ranks, one
+    pipeline stage per rank (``runtime.dist_async_program.
+    RankAsyncLoweredGraph``): each rank issues only its own stages'
+    programs over the explicit timetable, and the stage-boundary values
+    move through double-buffered point-to-point channels, the gradient
+    reduces through subgroup collectives.  Every rank runs the same
+    ``Session`` with the same state, as on :class:`DistExecutor`, and gets
+    every fetched shard back.
+
+    The mesh and the device are :class:`DistExecutor`'s (``mesh=None``
+    makes one over the world, ``device=None`` means ``cuda``); the cache
+    (per plan, fetches and v), :meth:`run` and :meth:`run_schedule` are
+    :class:`AsyncExecutor`'s; ``serialize=True`` completes every channel
+    as it is posted and synchronizes the device after every tick.
+    ``Session.switch`` on this executor migrates on the numpy simulator,
+    as the reference's does for its ``AsyncExecutor``; every rank computes
+    the same migration, so every rank's state stays identical."""
+
+    name = "dist-async"
+
+    def __init__(self, mesh=None, *, device=None, serialize: bool = False):
+        from repro_torch.runtime.dist_program import RankRunTimes
+        mesh = _rank_mesh(mesh, device)
+        super().__init__(mesh.device, serialize=serialize)
+        self.mesh = mesh
+        self.times = RankRunTimes()
+        self._traffic: list = []
+
+    def _lower(self, compiled, fetches, v):
+        from repro_torch.runtime.dist_async_program import \
+            RankAsyncLoweredGraph
+        lw = RankAsyncLoweredGraph(
+            compiled.graph, compiled.strategy_index, mesh=self.mesh,
+            shape_env=compiled.shape_env, topology=compiled.topology,
+            fetches=fetches, virtual_stages_per_device=v, times=self.times)
+        self._traffic += lw.traffic_counters()
+        return lw
+
+    def traffic(self):
+        """This rank's traffic over every run so far, as
+        :meth:`DistExecutor.traffic` counts it."""
+        return _traffic_total(self._traffic)
+
+
+def _rank_mesh(mesh, device):
+    """The rank executors' mesh: ``mesh``, checked against ``device``, or
+    one over the world group (``make_runtime_mesh(device=device)``)."""
+    import torch
+    if mesh is None:
+        from repro_torch.device import resolve_device
+        from repro_torch.launch.mesh import make_runtime_mesh
+        resolve_device(device)       # no GPU and no "cpu": raise first
+        return make_runtime_mesh(device=device)
+    if device is not None and mesh.device.type != torch.device(device).type:
+        raise ValueError(f"device {device!r} disagrees with the mesh's "
+                         f"{mesh.device}")
+    return mesh
+
+
+def _traffic_total(counters):
+    """The point-to-point messages and bytes, collectives and staged bytes
+    of ``counters`` (``LoweringStats``), summed."""
+    from repro_torch.runtime.lowering import LoweringStats
+    total = LoweringStats()
+    for stats in counters:
+        for name in ("p2p_messages", "p2p_bytes", "collectives",
+                     "staged_bytes"):
+            setattr(total, name, getattr(total, name) + getattr(stats, name))
+    return total
 
 
 def _executor_registry() -> dict:
-    # AsyncExecutor lives in runtime/ (it is a lowering, like
-    # LoweredGraph)
-    from repro_torch.runtime.async_program import AsyncExecutor
     return {"sim": SimulatorExecutor, "torch": TorchExecutor,
-            "async": AsyncExecutor, "dist": DistExecutor}
+            "async": AsyncExecutor, "dist": DistExecutor,
+            "dist-async": DistAsyncExecutor}
 
 
 def get_executor(name: str, **kwargs) -> Executor:
-    """Executor registry: ``"sim"``, ``"torch"``, ``"async"`` or
-    ``"dist"`` (the string form used by CLI flags).  Unknown names raise ``ValueError``
-    listing the valid options; unknown options raise ``TypeError`` instead
-    of vanishing silently."""
+    """Executor registry: ``"sim"``, ``"torch"``, ``"async"``, ``"dist"``
+    or ``"dist-async"`` (the string form used by CLI flags).  Unknown
+    names raise ``ValueError`` listing the valid options; unknown options
+    raise ``TypeError`` instead of vanishing silently."""
     registry = _executor_registry()
     cls = registry.get(name)
     if cls is None:

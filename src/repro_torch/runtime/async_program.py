@@ -48,6 +48,10 @@ Two deliberate divergences from the reference:
 
 ``serialize=True`` synchronizes the device after every issue: the
 baseline the overlap is measured against.
+
+The bucketing and channel split (:func:`bucket_graph`, :func:`bucket_io`)
+and the timetable entry points (:class:`TimetableRuns`) are shared with
+the rank lowering, ``runtime.dist_async_program``.
 """
 
 from __future__ import annotations
@@ -98,7 +102,9 @@ class CommChannel:
     or ``"reduce"`` (grad-reduce and other reducing plans).  ``slots``
     bounds the in-flight window: issuing past it waits on the host for
     the oldest outstanding transfer first (the double-buffer
-    discipline); ``inflight`` holds the issued transfers' events."""
+    discipline); ``inflight`` holds the issued transfers: their events
+    here, their posted plans on ranks (``runtime.dist_async_program``,
+    where ``fn`` is the channel's ``RankPlanLowering``)."""
 
     op: object
     kind: str
@@ -125,7 +131,147 @@ class TickRecord:
     end: object = None
 
 
-class AsyncLoweredGraph(StackedGraph):
+@dataclass
+class Buckets:
+    """A graph's schedulable ops bucketed by ``(virtual stage, phase)``
+    (:func:`bucket_graph`)."""
+
+    pipelines: list
+    n_stages: int
+    v: int
+    #: tensor name -> ids of the ops that read it
+    consumers: dict
+    #: ``(key, inline ops, [(split comm op, trigger key)])``, in key order
+    buckets: list
+
+    @property
+    def n_virtual(self) -> int:
+        return self.n_stages * self.v
+
+
+def bucket_graph(graph: Graph, strategy: int, resolved,
+                 virtual_stages_per_device: int | None = None) -> Buckets:
+    """Bucket the schedulable ops exactly like the simulator's ticks
+    (``assign_stages``, phase), and split out of each bucket the comm ops
+    that become channels: a comm op whose input crosses a bucket boundary
+    (boundary P2P), or whose output escapes the bucket untouched
+    (trailing grad-reduce / wrap-around send).  A channel is triggered by
+    the bucket that produces its input (``home``; the bucket itself for a
+    leaf).  Shared by the one-device lowering (:class:`AsyncLoweredGraph`)
+    and the rank lowering (``runtime.dist_async_program``).  Raises
+    ``ScheduleError`` when the graph wraps more than ``v`` allows."""
+    pipelines = construct_pipelines(graph, strategy, resolved_comms=resolved)
+    n_stages = max((p.n_stages for p in pipelines), default=1)
+    inferred = infer_virtual_stages(graph, strategy, pipelines)
+    v = inferred if virtual_stages_per_device is None \
+        else virtual_stages_per_device
+    stage_of = assign_stages(graph, strategy, pipelines,
+                             virtual_stages_per_device=v)
+
+    consumers: dict[str, set[int]] = {}
+    for op in graph.ops:
+        for t in op.inputs:
+            consumers.setdefault(t.name, set()).add(id(op))
+
+    buckets: dict[tuple[int, str], list] = {}
+    for op in graph.ops:
+        if op.kind in ("placeholder", "parameter"):
+            continue
+        buckets.setdefault(
+            (stage_of[id(op)], _phase_of(op)), []).append(op)
+
+    def home(op, key):
+        """The bucket that produces ``op``'s input (``key`` itself for a
+        leaf)."""
+        producer = graph.tensors[op.inputs[0].name].producer
+        if producer is None or \
+                producer.kind in ("placeholder", "parameter"):
+            return key
+        return stage_of[id(producer)], _phase_of(producer)
+
+    out = []
+    for key in sorted(buckets):
+        ops = buckets[key]
+        # classify each comm op: walk in reverse so a comm op's in-bucket
+        # consumers are already classified
+        status: dict[int, str] = {}
+        for op in reversed(ops):
+            if op.kind != "comm":
+                status[id(op)] = "inline"
+                continue
+            if home(op, key) != key:
+                status[id(op)] = "split"
+                continue
+            consumed_inline = any(
+                status.get(cid) == "inline"
+                for cid in consumers.get(op.outputs[0].name, ()))
+            status[id(op)] = "inline" if consumed_inline else "split"
+        out.append((key, [op for op in ops if status[id(op)] == "inline"],
+                    [(op, home(op, key)) for op in ops
+                     if status[id(op)] == "split"]))
+    return Buckets(pipelines, n_stages, v, consumers, out)
+
+
+def bucket_io(inline_ops, consumers, fetches) -> tuple[list, list]:
+    """A bucket's inputs (read, not produced inside it, in first-read
+    order) and outputs (fetched, or read by an op outside it)."""
+    inline_ids = {id(op) for op in inline_ops}
+    produced = {op.outputs[0].name for op in inline_ops}
+    in_names: list[str] = []
+    for op in inline_ops:
+        for t in op.inputs:
+            if t.name not in produced and t.name not in in_names:
+                in_names.append(t.name)
+    fetch_set = set(fetches)
+    out_names = [
+        op.outputs[0].name for op in inline_ops
+        if op.outputs[0].name in fetch_set
+        or (consumers.get(op.outputs[0].name, set()) - inline_ids)]
+    return in_names, out_names
+
+
+class TimetableRuns:
+    """``run`` and ``run_schedule`` of a per-stage lowering: both walk
+    ``(stage, microbatch, phase)`` ticks through the lowering's own
+    ``_run(ticks, states)``; and the per-microbatch envs it packs."""
+
+    def _make_envs(self, states) -> list[dict]:
+        """One env per microbatch: placeholders packed per microbatch,
+        parameters packed once and shared; a leaf that ``_leaf`` gives as
+        ``None`` (a rank that holds no shard of it) is left out."""
+        m = len(states)
+        envs: list[dict] = [{} for _ in range(m)]
+        for t in self.leaves:
+            if t.name in self._per_mb and m > 1:
+                xs = [self._leaf(st, t.name) for st in states]
+            else:
+                xs = [self._leaf(states[0], t.name)] * m
+            for env, x in zip(envs, xs):
+                if x is not None:
+                    env[t.name] = x
+        return envs
+
+    def run(self, state: dict[str, ShardedTensor]
+            ) -> dict[str, ShardedTensor]:
+        """Unpipelined execution (one microbatch): dispatch the buckets
+        in the canonical fwd 0..nv-1 then bwd nv-1..0 order."""
+        nv = self.n_virtual
+        order = [(s, 0, "fwd") for s in range(nv)] \
+            + [(s, 0, "bwd") for s in reversed(range(nv))]
+        return self._run(order, [state])[0]
+
+    def run_schedule(self, schedule: PipelineSchedule, states
+                     ) -> list[dict[str, ShardedTensor]]:
+        """Dispatch an explicit timetable over per-microbatch states."""
+        if len(states) != schedule.num_microbatches:
+            raise ScheduleError(
+                f"{len(states)} microbatch states for a "
+                f"{schedule.num_microbatches}-microbatch schedule")
+        return self._run([(t.stage, t.microbatch, t.phase)
+                          for t in schedule.ticks], list(states))
+
+
+class AsyncLoweredGraph(TimetableRuns, StackedGraph):
     """A deduced graph + strategy lowered to one program per (virtual
     stage, phase) bucket plus split-out comm channels on one torch
     device, dispatched over an explicit timetable.
@@ -147,69 +293,18 @@ class AsyncLoweredGraph(StackedGraph):
                          shape_env=shape_env, topology=topology,
                          fetches=fetches, times=times)
         self.serialize = serialize
-        self.pipelines = construct_pipelines(graph, strategy,
-                                             resolved_comms=self.resolved)
-        self.n_stages = max((p.n_stages for p in self.pipelines),
-                            default=1)
-        inferred = infer_virtual_stages(graph, strategy, self.pipelines)
-        self.v = inferred if virtual_stages_per_device is None \
-            else virtual_stages_per_device
-        self.n_virtual = self.n_stages * self.v
-        # raises ScheduleError when the graph wraps more than v allows
-        stage_of = assign_stages(graph, strategy, self.pipelines,
-                                 virtual_stages_per_device=self.v)
-
-        self._consumers: dict[str, set[int]] = {}
-        for op in graph.ops:
-            for t in op.inputs:
-                self._consumers.setdefault(t.name, set()).add(id(op))
-
-        # bucket the schedulable ops exactly like the simulator's ticks
-        buckets: dict[tuple[int, str], list] = {}
-        for op in graph.ops:
-            if op.kind in ("placeholder", "parameter"):
-                continue
-            buckets.setdefault(
-                (stage_of[id(op)], _phase_of(op)), []).append(op)
+        b = bucket_graph(graph, strategy, self.resolved,
+                         virtual_stages_per_device)
+        self.pipelines, self.n_stages, self.v = b.pipelines, b.n_stages, b.v
+        self.n_virtual = b.n_virtual
+        self._consumers = b.consumers
 
         self.programs: dict[tuple[int, str], StageProgram] = {}
         self.channels: list[CommChannel] = []
         # (stage, phase) -> channels issued right after that tick
         self.triggers: dict[tuple[int, str], list[CommChannel]] = {}
-
-        def home(op, key):
-            """The bucket that produces ``op``'s input (``key`` itself
-            for a leaf)."""
-            producer = graph.tensors[op.inputs[0].name].producer
-            if producer is None or \
-                    producer.kind in ("placeholder", "parameter"):
-                return key
-            return stage_of[id(producer)], _phase_of(producer)
-
-        for key in sorted(buckets):
-            ops = buckets[key]
-            # classify each comm op: split OUT of the stage program when
-            # its input crosses a bucket boundary (boundary P2P) or its
-            # output escapes the bucket untouched (trailing grad-reduce
-            # / wrap-around send); walk in reverse so a comm op's
-            # in-bucket consumers are already classified
-            status: dict[int, str] = {}
-            for op in reversed(ops):
-                if op.kind != "comm":
-                    status[id(op)] = "inline"
-                    continue
-                if home(op, key) != key:
-                    status[id(op)] = "split"
-                    continue
-                consumed_inline = any(
-                    status.get(cid) == "inline"
-                    for cid in self._consumers.get(op.outputs[0].name, ()))
-                status[id(op)] = "inline" if consumed_inline else "split"
-            inline_ops = [op for op in ops if status[id(op)] == "inline"]
-            for op in ops:
-                if status[id(op)] != "split":
-                    continue
-                trigger = home(op, key)
+        for key, inline_ops, splits in b.buckets:
+            for op, trigger in splits:
                 ch = self._compile_channel(op, trigger)
                 self.channels.append(ch)
                 self.triggers.setdefault(trigger, []).append(ch)
@@ -234,19 +329,8 @@ class AsyncLoweredGraph(StackedGraph):
     def _compile_bucket(self, key, inline_ops) -> StageProgram | None:
         if not inline_ops:
             return None
-        inline_ids = {id(op) for op in inline_ops}
-        produced = {op.outputs[0].name for op in inline_ops}
-        in_names: list[str] = []
-        for op in inline_ops:
-            for t in op.inputs:
-                if t.name not in produced and t.name not in in_names:
-                    in_names.append(t.name)
-        fetch_set = set(self.fetches)
-        out_names = [
-            op.outputs[0].name for op in inline_ops
-            if op.outputs[0].name in fetch_set
-            or (self._consumers.get(op.outputs[0].name, set())
-                - inline_ids)]
+        in_names, out_names = bucket_io(inline_ops, self._consumers,
+                                        self.fetches)
         if not out_names:
             return None             # dead bucket: nothing escapes
 
@@ -290,21 +374,6 @@ class AsyncLoweredGraph(StackedGraph):
         return "\n".join(lines)
 
     # -- pack / execute / fetch --------------------------------------------
-
-    def _make_envs(self, states) -> list[dict]:
-        """One env per microbatch: placeholders packed per microbatch,
-        parameters packed once and shared."""
-        m = len(states)
-        envs: list[dict] = [{} for _ in range(m)]
-        for t in self.leaves:
-            if t.name in self._per_mb and m > 1:
-                for env, st in zip(envs, states):
-                    env[t.name] = self._leaf(st, t.name)
-            else:
-                x = self._leaf(states[0], t.name)
-                for env in envs:
-                    env[t.name] = x
-        return envs
 
     def _cuda_streams(self) -> list | None:
         """One stream per virtual stage, then the channels' (CUDA
@@ -438,25 +507,6 @@ class AsyncLoweredGraph(StackedGraph):
         self.times.mark("pack", t0, self.device)
         return self._execute(ticks, envs)
 
-    def run(self, state: dict[str, ShardedTensor]
-            ) -> dict[str, ShardedTensor]:
-        """Unpipelined execution (one microbatch): dispatch the buckets
-        in the canonical fwd 0..nv-1 then bwd nv-1..0 order."""
-        nv = self.n_virtual
-        order = [(s, 0, "fwd") for s in range(nv)] \
-            + [(s, 0, "bwd") for s in reversed(range(nv))]
-        return self._run(order, [state])[0]
-
-    def run_schedule(self, schedule: PipelineSchedule, states
-                     ) -> list[dict[str, ShardedTensor]]:
-        """Dispatch an explicit timetable over per-microbatch states."""
-        if len(states) != schedule.num_microbatches:
-            raise ScheduleError(
-                f"{len(states)} microbatch states for a "
-                f"{schedule.num_microbatches}-microbatch schedule")
-        return self._run([(t.stage, t.microbatch, t.phase)
-                          for t in schedule.ticks], list(states))
-
 
 class AsyncExecutor:
     """MPMD per-stage dispatch on one torch device (the third executor).
@@ -498,14 +548,16 @@ class AsyncExecutor:
         key = (tuple(fetches) if fetches else None, v)
         lw = per_plan.get(key)
         if lw is None:
-            lw = AsyncLoweredGraph(
-                compiled.graph, compiled.strategy_index, device=self.device,
-                shape_env=compiled.shape_env, topology=compiled.topology,
-                fetches=list(fetches) if fetches else None,
-                virtual_stages_per_device=v, times=self.times)
-            per_plan[key] = lw
+            lw = per_plan[key] = self._lower(
+                compiled, list(fetches) if fetches else None, v)
         lw.serialize = self.serialize
         return lw
+
+    def _lower(self, compiled, fetches, v) -> AsyncLoweredGraph:
+        return AsyncLoweredGraph(
+            compiled.graph, compiled.strategy_index, device=self.device,
+            shape_env=compiled.shape_env, topology=compiled.topology,
+            fetches=fetches, virtual_stages_per_device=v, times=self.times)
 
     def run(self, compiled, state, fetches=None
             ) -> dict[str, ShardedTensor]:

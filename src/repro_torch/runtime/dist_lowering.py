@@ -50,6 +50,21 @@ order (``dist.new_group`` is collective over the world), and cached in the
 mesh.  Geometry is fixed when the plan is lowered; :meth:`apply` only
 moves data.  Under ``gloo`` with CUDA shards every payload is staged
 through host memory, explicitly, since gloo moves CPU tensors only.
+
+:meth:`RankPlanLowering.post` and :meth:`PendingPlan.complete` split
+:meth:`~RankPlanLowering.apply` in two, for the double-buffered channels
+of ``runtime.dist_async_program``: ``post`` runs every stage but the
+last, each of its rounds waited on before the next is posted, then posts
+all of the last stage's rounds (every ``isend`` / ``irecv`` of this rank)
+and returns without waiting on them; ``complete`` waits, copies what was
+received back from host memory, and assembles this rank's next box.
+``apply`` is ``post`` then ``complete``.  Only the last stage's rounds
+are ever in flight together (and with its reduce groups), so only they
+hold their staged host buffers at once; every earlier stage moves one
+round at a time, as ``apply`` did before the split.  Reduce groups
+and uniform stages run to their end inside ``post``: gloo's
+``all_gather`` and ``all_reduce`` are synchronous, so a grad-reduce
+channel holds its rank until every member has joined.
 """
 
 from __future__ import annotations
@@ -105,6 +120,38 @@ class _Stage:
     uni: "dict | None" = None
 
 
+@dataclass
+class PendingPlan:
+    """A plan that :meth:`RankPlanLowering.post` has posted: the last
+    stage's point-to-point work in flight, the buffers it receives into,
+    and what the assembly of this rank's next box needs.  Completing it
+    again returns the same shard."""
+
+    lowering: "RankPlanLowering"
+    dtype: torch.dtype
+    x: "torch.Tensor | None" = None
+    prev: object = None
+    stage: "_Stage | None" = None
+    works: list = field(default_factory=list)
+    #: (id of the delivering group, the buffer it lands in)
+    recvs: list = field(default_factory=list)
+    #: id of the delivering group -> its piece, back on the device
+    received: dict = field(default_factory=dict)
+    reduced: dict = field(default_factory=dict)
+    done: bool = False
+    result: "torch.Tensor | None" = None
+
+    def complete(self, times=None) -> "torch.Tensor | None":
+        """Wait for the posted work; returns this rank's shard under the
+        plan's last annotation (``None`` where it holds none).  ``times``
+        gets the seconds of host staging, as in ``apply``."""
+        if not self.done:
+            self.result = self.lowering._complete(self, times)
+            self.done = True
+            self.x, self.received, self.reduced = None, {}, {}
+        return self.result
+
+
 class RankPlanLowering:
     """Applies one CommPlan's stages to this rank's local shard.
 
@@ -134,12 +181,23 @@ class RankPlanLowering:
         self.reduction = reduction
         self.dev = mesh.logical_device(order)
         self.stats = LoweringStats()
+        # a reducing plan (AR / RS / SplitAR / SplitRS groups) rather than
+        # one that only copies
+        self.has_reduce = any(g.reduce for s in plan.steps for g in s.groups)
         self._times = None
         self._stages: list[_Stage] = []
         prev = plan.src
         for stage in plan.stages:
             self._stages.append(self._stage_static(stage, prev))
             prev = stage.annot_after
+        me = self.dev
+        #: whether this rank takes part: it holds a shard before or after a
+        #: stage, sends, receives or reduces, or joins a uniform stage's
+        #: collective
+        self.involved = (me is not None and me in plan.src.devices) or any(
+            st.uni is not None or st.rounds or st.reduces
+            or (me is not None and me in st.annot_after.devices)
+            for st in self._stages)
 
     # -- static geometry -----------------------------------------------------
 
@@ -283,10 +341,10 @@ class RankPlanLowering:
         return torch.empty(shape, dtype=dtype,
                            device="cpu" if self.mesh.staged else device)
 
-    def _exchange(self, sends, recvs, dtype, device) -> list[torch.Tensor]:
-        """One ``batch_isend_irecv`` of ``sends`` ((peer, tensor)) and
-        ``recvs`` ((peer, shape)); returns the received tensors on
-        ``device``."""
+    def _post_exchange(self, sends, recvs, dtype, device):
+        """Post one ``batch_isend_irecv`` of ``sends`` ((peer, tensor)) and
+        ``recvs`` ((peer, shape)); returns its work handles and the
+        buffers the receives land in."""
         ops, bufs = [], []
         for peer, t in sends:
             t = self._out(t)
@@ -297,9 +355,24 @@ class RankPlanLowering:
             b = self._buf(shape, dtype, device)
             bufs.append(b)
             ops.append(dist.P2POp(dist.irecv, b, peer))
-        for w in dist.batch_isend_irecv(ops):
+        return (dist.batch_isend_irecv(ops) if ops else []), bufs
+
+    def _exchange(self, sends, recvs, dtype, device) -> list[torch.Tensor]:
+        """One ``batch_isend_irecv``, waited on; returns the received
+        tensors on ``device``."""
+        works, bufs = self._post_exchange(sends, recvs, dtype, device)
+        for w in works:
             w.wait()
         return [self._in(b, device) for b in bufs]
+
+    def _land(self, pend: "PendingPlan"):
+        """Wait for ``pend``'s posted rounds and copy what they received
+        back to the device, into ``pend.received``."""
+        for w in pend.works:
+            w.wait()
+        pend.received.update({key: self._in(b, self.mesh.device)
+                              for key, b in pend.recvs})
+        pend.works, pend.recvs = [], []
 
     def _reduce(self, x, op: _ReduceOps, dtype, device):
         """Run this rank's part of one reduce group; returns the reduced
@@ -371,57 +444,87 @@ class RankPlanLowering:
         rank of the mesh calls this with the same plan.  ``times``, when
         given (``runtime.dist_program.RankRunTimes``), gets the seconds of
         host staging added to its ``staging``."""
+        return self.post(x, dtype, times).complete(times)
+
+    def post(self, x: "torch.Tensor | None", dtype: torch.dtype,
+             times=None) -> PendingPlan:
+        """:meth:`apply` up to the last stage's point-to-point exchange,
+        whose rounds are all posted and none waited on: every stage before
+        it (each round waited on before the next is posted), and the last
+        stage's reduce groups, run to their end.  Every rank of the
+        mesh posts the same plans in the same order; this rank completes
+        the returned :class:`PendingPlan` when it needs the result."""
         self._times = times
         try:
-            return self._apply(x, dtype)
+            return self._post(x, dtype)
         finally:
             self._times = None
 
-    def _apply(self, x, dtype):
+    def _post(self, x, dtype) -> PendingPlan:
         device = self.mesh.device
-        me = self.dev
         prev = self.plan.src
         if x is not None:
             x = x.to(dtype)
-        for st in self._stages:
+        last = len(self._stages) - 1
+        for i, st in enumerate(self._stages):
             if st.uni is not None:
                 x, prev = self._run_uniform(x, st, prev, dtype,
                                             device), st.annot_after
                 continue
-            received = {}
+            pend = PendingPlan(self, dtype, x, prev, st)
             for ops in st.rounds:
-                got = self._exchange(
+                works, bufs = self._post_exchange(
                     [(p, x[rel]) for p, rel in ops.sends],
                     [(p, shape) for p, _, shape in ops.recvs], dtype,
                     device)
-                for (_, key, _), t in zip(ops.recvs, got):
-                    received[key] = t
-            reduced = {id(op.group): self._reduce(x, op, dtype, device)
-                       for op in st.reduces}
-            nxt = st.annot_after
-            if me is None or me not in nxt.devices:
-                x, prev = None, nxt
-                continue
-            nbox = nxt.device_box(me, self.shape)
-            out = torch.zeros(box_shape(nbox), dtype=dtype, device=device)
-            if me in prev.devices:
-                pbox = prev.device_box(me, self.shape)
-                inter = box_intersect(pbox, nbox)
-                if inter is not None:
-                    out[rel_slices(nbox, inter)] = x[rel_slices(pbox, inter)]
-            for g, own in st.pieces:
-                if g.reduce:
-                    piece = reduced[id(g)]
-                elif own is None:
-                    piece = received[id(g)]
-                else:
-                    piece = x[own]
-                inter = box_intersect(g.box, nbox)
-                if inter is not None:
-                    out[rel_slices(nbox, inter)] = \
-                        piece[rel_slices(g.box, inter)]
-            x, prev = out, nxt
-        return x
+                pend.works += works
+                pend.recvs += [(key, b) for (_, key, _), b in
+                               zip(ops.recvs, bufs)]
+                if i < last:
+                    self._land(pend)
+            pend.reduced = {id(op.group): self._reduce(x, op, dtype, device)
+                            for op in st.reduces}
+            if i == last:
+                return pend
+            x, prev = self._assemble(pend), st.annot_after
+        return PendingPlan(self, dtype, done=True, result=x)
+
+    def _complete(self, pend: PendingPlan, times) -> "torch.Tensor | None":
+        self._times = times
+        try:
+            return self._assemble(pend)
+        finally:
+            self._times = None
+
+    def _assemble(self, pend: PendingPlan) -> "torch.Tensor | None":
+        """Wait for a posted stage's exchanges, then assemble this rank's
+        next box from local retention and the deliveries."""
+        device, dtype, me = self.mesh.device, pend.dtype, self.dev
+        self._land(pend)
+        received = pend.received
+        st, prev, x = pend.stage, pend.prev, pend.x
+        nxt = st.annot_after
+        if me is None or me not in nxt.devices:
+            return None
+        nbox = nxt.device_box(me, self.shape)
+        out = torch.zeros(box_shape(nbox), dtype=dtype, device=device)
+        if me in prev.devices:
+            pbox = prev.device_box(me, self.shape)
+            inter = box_intersect(pbox, nbox)
+            if inter is not None:
+                out[rel_slices(nbox, inter)] = x[rel_slices(pbox, inter)]
+        for g, own in st.pieces:
+            if g.reduce:
+                piece = pend.reduced[id(g)]
+            elif own is None:
+                piece = received[id(g)]
+            else:
+                piece = x[own]
+            inter = box_intersect(g.box, nbox)
+            if inter is not None:
+                out[rel_slices(nbox, inter)] = \
+                    piece[rel_slices(g.box, inter)]
+        return out
 
 
 def gather_shards(mesh, order: DeviceOrder, annot, shape, local,

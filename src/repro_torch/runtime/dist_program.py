@@ -63,23 +63,20 @@ class RankRunTimes(RunTimes):
         return out
 
 
-class RankLoweredGraph(StackedGraph):
-    """A deduced graph + strategy lowered onto this rank, reusable over
-    fresh shard values.  Every rank of ``mesh`` builds one from the same
-    arguments (comm plans make their subgroups here, in the same order on
-    every rank) and runs it with the same state.
-
-    With ``num_microbatches=m > 1`` the graph passed in is the MICRO graph
-    and :meth:`run_microbatches` runs it once per microbatch."""
+class RankGraph(StackedGraph):
+    """What both rank lowerings of a deduced graph + strategy share (this
+    module's :class:`RankLoweredGraph` and ``runtime.dist_async_program.
+    RankAsyncLoweredGraph``): the mesh and this rank's logical device,
+    every comm op's :class:`RankPlanLowering` (built in graph order on
+    every rank, so that their subgroups are made in the same order), the
+    dtypes fixed from the leaves, this rank's class of each segment,
+    packing this rank's leaves and the fetch that gathers every shard to
+    every rank."""
 
     def __init__(self, graph: Graph, strategy: int = 0, *, mesh,
                  shape_env: dict[str, int] | None = None,
                  topology: Topology | None = None, fetches=None,
-                 num_microbatches: int = 1,
                  times: RankRunTimes | None = None):
-        if num_microbatches < 1:
-            raise ValueError(
-                f"num_microbatches must be >= 1 (got {num_microbatches})")
         super().__init__(graph, strategy, device=mesh.device,
                          shape_env=shape_env, topology=topology,
                          fetches=fetches,
@@ -87,7 +84,6 @@ class RankLoweredGraph(StackedGraph):
                          else RankRunTimes())
         mesh.check_span(self.n_mesh)
         self.mesh = mesh
-        self.num_microbatches = num_microbatches
         self.dev = mesh.logical_device(self.order)
         self._lowerings = {
             id(op): RankPlanLowering(
@@ -96,20 +92,18 @@ class RankLoweredGraph(StackedGraph):
             for op in graph.comm_ops}
         for lw in self._lowerings.values():
             self.stats.merge(lw.stats)
-        self.ir = self._partition()
-        self._runs = self._rank_segments()
         self._dtypes: dict[str, np.dtype] | None = None
         #: fetch traffic (gathers onto every rank), accumulated
         self.fetch_stats = LoweringStats()
 
-    def _rank_segments(self) -> dict[int, tuple]:
-        """``id(segment) -> (this rank's class as a one-device class,
-        live-outs)`` for the live segments this rank's device runs; counts
-        the segments and this rank's attention dispatches into
-        ``stats``."""
-        live = segment_liveness(self.graph, self.ir.segments, self.fetches)
+    def _rank_segments(self, segments, fetches) -> dict[int, tuple]:
+        """``id(segment) -> (segment, this rank's class as a one-device
+        class, live-outs)`` for the live segments of ``segments`` (live
+        against ``fetches``) that this rank's device runs; counts the
+        segments and this rank's attention dispatches into ``stats``."""
+        live = segment_liveness(self.graph, segments, fetches)
         runs = {}
-        for seg in self.ir.segments:
+        for seg in segments:
             live_out = live[id(seg)][1]
             if not live_out:
                 continue
@@ -186,9 +180,13 @@ class RankLoweredGraph(StackedGraph):
             device=self.device, dtype=self._tdtype(name))
         return x.unsqueeze(0)
 
-    def _eval(self, tenv: dict) -> dict:
+    def _run_entries(self, entries, runs, tenv: dict) -> None:
+        """Run IR ``entries`` in order on this rank: each comm op's plan
+        (timed as ``comm``), and this rank's class of each segment in
+        ``runs`` (timed as ``compute``); a segment this rank's device does
+        not run is skipped, and so is a value it does not hold."""
         rows = slice(None)
-        for entry in self.ir.entries:
+        for entry in entries:
             t0 = time.perf_counter()
             if isinstance(entry, CommSlot):
                 op = entry.op
@@ -200,7 +198,7 @@ class RankLoweredGraph(StackedGraph):
                     tenv[op.outputs[0].name] = y.unsqueeze(0)
                 self.times.mark("comm", t0, self.device)
                 continue
-            run = self._runs.get(id(entry))
+            run = runs.get(id(entry))
             if run is not None:
                 seg, cls, live_out = run
                 exact = run_class(seg, cls, rows, self._dtypes, tenv,
@@ -209,11 +207,6 @@ class RankLoweredGraph(StackedGraph):
                     if name in exact:
                         tenv[name] = exact[name]
             self.times.mark("compute", t0, self.device)
-        t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.times.mark("compute", t0, self.device)
-        return tenv
 
     def _fetch(self, tenv) -> dict[str, ShardedTensor]:
         t0 = time.perf_counter()
@@ -236,6 +229,38 @@ class RankLoweredGraph(StackedGraph):
         elif dtypes != self._dtypes:
             raise ValueError("leaf dtypes changed since the first run of "
                              "this lowered graph")
+
+
+class RankLoweredGraph(RankGraph):
+    """A deduced graph + strategy lowered onto this rank, reusable over
+    fresh shard values.  Every rank of ``mesh`` builds one from the same
+    arguments (comm plans make their subgroups here, in the same order on
+    every rank) and runs it with the same state.
+
+    With ``num_microbatches=m > 1`` the graph passed in is the MICRO graph
+    and :meth:`run_microbatches` runs it once per microbatch."""
+
+    def __init__(self, graph: Graph, strategy: int = 0, *, mesh,
+                 shape_env: dict[str, int] | None = None,
+                 topology: Topology | None = None, fetches=None,
+                 num_microbatches: int = 1,
+                 times: RankRunTimes | None = None):
+        if num_microbatches < 1:
+            raise ValueError(
+                f"num_microbatches must be >= 1 (got {num_microbatches})")
+        super().__init__(graph, strategy, mesh=mesh, shape_env=shape_env,
+                         topology=topology, fetches=fetches, times=times)
+        self.num_microbatches = num_microbatches
+        self.ir = self._partition()
+        self._runs = self._rank_segments(self.ir.segments, self.fetches)
+
+    def _eval(self, tenv: dict) -> dict:
+        self._run_entries(self.ir.entries, self._runs, tenv)
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.times.mark("compute", t0, self.device)
+        return tenv
 
     def run(self, state: dict[str, ShardedTensor]
             ) -> dict[str, ShardedTensor]:

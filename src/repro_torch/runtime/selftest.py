@@ -31,7 +31,21 @@ simulator (``core.simulator.apply_plan`` and ``api.SimulatorExecutor``):
   ``api:train/hetero4`` (the hsize=2 gradient path: a bottom AR, then a
   top SplitAR, against the dense numpy gradients) and the three
   ``elastic:trace/*`` traces through ``elastic.ElasticDriver`` against an
-  uninterrupted run.
+  uninterrupted run,
+* ``async`` cases: ``async:pipeline/n`` (the loss pipeline's ``Y`` and
+  ``L`` at m = 1, 2, 4 under 1f1b, gpipe and interleaved) through
+  ``api.DistAsyncExecutor``, async and serialized, against the simulator
+  and ``api.DistExecutor`` on the same ranks, with the per-stage
+  programs (``2 x n_virtual`` over the ranks) and the ``p2p`` and
+  ``reduce`` channels checked; and, at ``n = 4``, ``async:train/4`` (the
+  loss pipeline trained at (m, schedule) (1, 1f1b), (2, 1f1b), (4, 1f1b),
+  (4, gpipe), and the v=2 zigzag at m = 1, 2, 4: losses, gradient and
+  updated weight shards),
+* ``search`` cases, at ``n = 4``: ``search:hetero/4``, the strategy
+  search for a 2-fast + 2-slow CPU cluster validating its top three
+  candidates on ``("sim", "dist")``: three executed, all bit-exact,
+  ordering agreement at least 2/3, a ``hetero`` winner, and the same
+  validation report on every rank.
 
 With ``--out DIR`` rank 0 writes each case's inputs and output shards to
 ``DIR/<case>.npz`` (keys ``<label>|<tensor>|<device>``), for a checker in
@@ -40,10 +54,11 @@ simulator.  Rank 0 prints one line per case and one
 ``RUNTIME_SELFTEST_JSON {...}`` line: each case's ``ok``, its plan's step
 kinds, and the traffic of its plans summed over the ranks (point-to-point
 messages and bytes, collectives, bytes staged through host memory; for
-an api case, its ``DistExecutor`` runs' plans and fetches).  Of the
-reference's cases only ``async:*`` and ``search:*`` are not ported yet.
-The sweep stops at the first case that fails on a rank; that rank prints
-its report and exits non-zero.
+an api case, its ``DistExecutor`` runs' plans and fetches; for an async
+case, its ``DistAsyncExecutor`` runs'; for the search case, its
+``DistExecutor`` bit-exactness runs').  Every case of the reference's
+selftest runs here.  The sweep stops at the first case that fails on a
+rank; that rank prints its report and exits non-zero.
 """
 
 from __future__ import annotations
@@ -64,6 +79,13 @@ TRAFFIC = ("p2p_messages", "p2p_bytes", "collectives", "staged_bytes")
 PIPE_RUNS = [(1, "1f1b"), (2, "1f1b"), (4, "1f1b"), (4, "gpipe"),
              (2, "interleaved"), (4, "interleaved")]
 TRAIN_RUNS = [(1, "1f1b"), (2, "1f1b"), (4, "gpipe")]
+#: the reference's ``async:pipeline/n`` runs (m, schedule) and
+#: ``async:train/4`` runs of the loss pipeline
+ASYNC_PIPE_RUNS = [(1, "1f1b")] + [(m, kind) for m in (2, 4)
+                                   for kind in ("1f1b", "gpipe",
+                                                "interleaved")]
+ASYNC_TRAIN_RUNS = [(1, "1f1b"), (2, "1f1b"), (4, "1f1b"), (4, "gpipe")]
+GROUPS = ("comm", "api", "async", "search")
 #: the lowering's static counts that the rank path shares with the
 #: stacked one (``LoweringStats``)
 TIERS = ("uniform_reduce_stages", "uniform_copy_stages", "stages",
@@ -665,7 +687,178 @@ def api_cases(mesh, n: int, save) -> dict:
     return cases
 
 
-def run_all(mesh, groups=("comm", "api"), out_dir=None) -> dict:
+def async_cases(mesh, n: int, save) -> dict:
+    """The ``async:*`` cases over ``n`` devices."""
+    import torch.distributed as dist
+
+    api = _api()
+    from repro_torch.api import testing
+
+    from .lowering import LoweringStats
+
+    made = []      # this case's DistAsyncExecutors, for its traffic
+
+    def dist_async(**kw):
+        ex = api.DistAsyncExecutor(mesh, **kw)
+        made.append(ex)
+        return ex
+
+    def traffic() -> LoweringStats:
+        total = LoweringStats()
+        while made:
+            total.merge(made.pop().traffic())
+        return total
+
+    def pipeline_case():
+        prog = testing.loss_pipeline_program(n, name=f"pipe{n}")
+        xv, ws, want_y = testing.loss_pipeline_values(seed=11)
+        executors = {"sim": api.SimulatorExecutor(),
+                     "dist": api.DistExecutor(mesh),
+                     "dist-async": dist_async(),
+                     "dist-async/serialized": dist_async(serialize=True)}
+        runs = {}
+        for label, ex in executors.items():
+            sess = api.Session(prog, f"pipe{n}", executor=ex)
+            sess.load(ws)
+            for m, kind in ASYNC_PIPE_RUNS:
+                r = sess.run({"X": xv}, fetches=["Y", "L"],
+                             num_microbatches=m, schedule=kind)
+                np.testing.assert_array_equal(r.value("Y"), want_y)
+                assert float(r.value("L")) == float(want_y.sum())
+                runs[(label, m, kind)] = r
+        # per-device shards bitwise across executors at each (m, kind):
+        # L is Partial, so its summands compare at the same microbatching
+        arrays = {"in|X|0": xv, **{f"in|{k}|0": v for k, v in ws.items()}}
+        for m, kind in ASYNC_PIPE_RUNS:
+            for label in ("dist", "dist-async", "dist-async/serialized"):
+                for t in ("Y", "L"):
+                    _same(runs[("sim", m, kind)].shards(t),
+                          runs[(label, m, kind)].shards(t),
+                          f"{t} {label} m={m} {kind}")
+            arrays.update(shard_arrays(
+                f"m{m}-{kind}", {t: runs[("dist-async", m, kind)].shards(t)
+                                 for t in ("Y", "L")}))
+        save(f"async:pipeline/{n}", arrays)
+        # per-stage MPMD: over the ranks, one fwd and one bwd program per
+        # virtual stage, and the boundary P2P and grad reduces as channels
+        lw = executors["dist-async"].lowered(prog.compile_train(f"pipe{n}"))
+        keys = [list(k) for k in lw.programs]
+        every = [None] * mesh.world
+        dist.all_gather_object(every, keys)
+        union = {tuple(k) for rank_keys in every for k in rank_keys}
+        n_virtual = prog.compile(f"pipe{n}").n_stages
+        assert len(union) == 2 * n_virtual, (sorted(union), n_virtual)
+        kinds = [ch.kind for ch in lw.channels]
+        if n >= 4:      # n=2: 1-device stages -> no partial grads
+            assert "reduce" in kinds, kinds
+        if n_virtual > 1:
+            assert "p2p" in kinds, kinds
+        return {"programs": len(union), "channels": len(lw.channels),
+                "channel_kinds": sorted(set(kinds)),
+                "runs": len(ASYNC_PIPE_RUNS)}, traffic()
+
+    def train_case():
+        prog = testing.loss_pipeline_program(4, name="pipe4")
+        xv, ws, want_y = testing.loss_pipeline_values(seed=11)
+        want_loss = float(want_y.sum())
+        runs = {}
+        for m, kind in ASYNC_TRAIN_RUNS:
+            for label, ex in (("sim", api.SimulatorExecutor()),
+                              ("dist-async", dist_async())):
+                sess = api.Session(prog, "pipe4", executor=ex)
+                sess.load(ws)
+                r = sess.train_step({"X": xv}, num_microbatches=m,
+                                    schedule=kind)
+                assert r.loss == want_loss, (label, m, kind, r.loss)
+                runs[(label, m, kind)] = (r, dict(sess.weights))
+        base, base_w = runs[("sim", 1, "1f1b")]
+        arrays = {"in|X|0": xv, **{f"in|{k}|0": v for k, v in ws.items()}}
+        for (label, m, kind), (r, w) in runs.items():
+            for k in ws:
+                _same(base.grads[k], r.grads[k],
+                      f"grad {k} {label} m={m} {kind}")
+                _same(base_w[k], w[k], f"weight {k} {label} m={m} {kind}")
+            if label == "dist-async":
+                arrays.update(shard_arrays(f"m{m}-{kind}-grad", r.grads))
+                arrays.update(shard_arrays(f"m{m}-{kind}-weight", w))
+                arrays[f"m{m}-{kind}-loss|L|0"] = np.float64(r.loss)
+        # the v=2 interleaved zigzag: a device's two chunks on distinct
+        # per-chunk programs
+        zx, zws, zwant_y = testing.zigzag_values(seed=13)
+        zruns = {}
+        for m in (1, 2, 4):
+            for label, ex in (("sim", api.SimulatorExecutor()),
+                              ("dist-async", dist_async())):
+                sess = api.Session(testing.zigzag_program(4, name="zig4"),
+                                   "zig4", executor=ex)
+                sess.load(zws)
+                r = sess.train_step({"X": zx}, num_microbatches=m,
+                                    schedule="interleaved")
+                assert r.loss == float(zwant_y.sum()), (label, m, r.loss)
+                zruns[(label, m)] = (r, dict(sess.weights))
+        zbase = zruns[("sim", 1)][0]
+        arrays.update({f"zin|{k}|0": v for k, v in zws.items()})
+        arrays["zin|X|0"] = zx
+        for (label, m), (r, w) in zruns.items():
+            for k in zws:
+                _same(zbase.grads[k], r.grads[k], f"zig grad {k} {label} "
+                                                  f"m={m}")
+                _same(zruns[("sim", m)][1][k], w[k],
+                      f"zig weight {k} {label} m={m}")
+            if label == "dist-async":
+                arrays.update(shard_arrays(f"zig-m{m}-grad", r.grads))
+                arrays.update(shard_arrays(f"zig-m{m}-weight", w))
+                arrays[f"zig-m{m}-loss|L|0"] = np.float64(r.loss)
+        save("async:train/4", arrays)
+        return {"loss": want_loss, "zigzag_loss": zbase.loss}, traffic()
+
+    cases = {f"async:pipeline/{n}": pipeline_case}
+    if n == 4:
+        cases["async:train/4"] = train_case
+    return cases
+
+
+def search_cases(mesh, n: int, save) -> dict:
+    """``search:hetero/4`` (at ``n = 4``)."""
+
+    def search_case():
+        from repro_torch.search import Searcher, cpu_hetero_cluster, tiny_spec
+
+        searcher = Searcher(tiny_spec(), global_batch=8, seq_len=128,
+                            tp_options=(1, 2), pp_options=(1, 2),
+                            pipeline_options=(1, 2), virtual_options=(1,))
+        result = searcher.search(cpu_hetero_cluster(2, 2), validate_top=3,
+                                 executors=("sim", "dist"), mesh=mesh,
+                                 repeats=5, batch=64, d=64, f=128)
+        val = result.validation
+        assert val is not None and val.speed_projected
+        execed = [e for e in val.executed if e.error is None]
+        assert len(execed) == 3, [e.describe() for e in val.executed]
+        assert all(e.bit_exact for e in execed), \
+            [e.describe() for e in execed]
+        ag = val.agreement()
+        assert ag is not None and ag >= 2 / 3, val.summary()
+        best = result.best.candidate
+        assert best.kind == "hetero", best.describe()
+        # the same report on every rank, to the last bit of every time
+        import torch.distributed as dist
+        mine = [val.speed_projected, ag] + [
+            [e.name, e.m, e.schedule, e.predicted_s, e.measured_wall_s,
+             e.measured_makespan_s, e.projected_makespan_s,
+             e.proxy_predicted_s, e.loss, e.bit_exact, e.error]
+            for e in val.executed]
+        every = [None] * mesh.world
+        dist.all_gather_object(every, mine)
+        assert all(r == mine for r in every), every
+        return {"winner": best.name, "agreement": ag,
+                "prune": result.prune_report.counts(),
+                "executed": mine[2:], "summary": val.summary(),
+                "ranks_agree": len(every)}, val.traffic
+
+    return {"search:hetero/4": search_case} if n == 4 else {}
+
+
+def run_all(mesh, groups=GROUPS, out_dir=None) -> dict:
     """Every case of ``groups`` over the mesh's ranks, in order, up to the
     first that fails on this rank; the same report on every rank while
     the cases pass.  A case's exchanges are collective, so a rank whose
@@ -679,6 +872,10 @@ def run_all(mesh, groups=("comm", "api"), out_dir=None) -> dict:
         cases.update(comm_cases(mesh, n, save))
     if "api" in groups:
         cases.update(api_cases(mesh, n, save))
+    if "async" in groups:
+        cases.update(async_cases(mesh, n, save))
+    if "search" in groups:
+        cases.update(search_cases(mesh, n, save))
     report: dict = {"ranks": n, "backend": mesh.backend,
                     "device": str(mesh.device.type), "cases": {}}
     for key, fn in cases.items():
@@ -704,13 +901,14 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default=None,
                     help="process-group backend: gloo or nccl")
     ap.add_argument("--device", default=None, help="cpu or cuda")
-    ap.add_argument("--cases", default="comm,api",
-                    help="comma-separated case groups: comm, api")
+    ap.add_argument("--cases", default=",".join(GROUPS),
+                    help="comma-separated case groups: "
+                         + ", ".join(GROUPS))
     ap.add_argument("--out", default=None,
                     help="directory for each case's shards (rank 0)")
     args = ap.parse_args(argv)
     groups = tuple(args.cases.split(","))
-    if not set(groups) <= {"comm", "api"}:
+    if not set(groups) <= set(GROUPS):
         ap.error(f"unknown case groups {groups}")
     from repro_torch.launch.mesh import make_runtime_mesh
     mesh = make_runtime_mesh(backend=args.backend, device=args.device)

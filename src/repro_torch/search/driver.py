@@ -94,7 +94,7 @@ class Searcher:
     def search(self, cluster: ClusterSpec,
                ranks: list[int] | None = None, *,
                validate_top: int = 0, executors=("sim",), device=None,
-               repeats: int = 3, what: str = "strategy",
+               mesh=None, repeats: int = 3, what: str = "strategy",
                **validate_kw) -> SearchResult:
         """Enumerate + prune + rank; with ``validate_top=k > 0`` also
         execute the top-k (``validate.validate``).  Raises
@@ -110,7 +110,7 @@ class Searcher:
         if validate_top > 0:
             validation = validate(cluster, ranked, top_k=validate_top,
                                   executors=executors, device=device,
-                                  repeats=repeats, **validate_kw)
+                                  mesh=mesh, repeats=repeats, **validate_kw)
         return SearchResult(ranked, report, validation)
 
     def select_candidate(self, cluster: ClusterSpec,
@@ -157,7 +157,7 @@ class Searcher:
 def search(cluster: ClusterSpec, model: ModelSpec, *,
            global_batch: int, seq_len: int = 4096,
            validate_top: int = 0, executors=("sim",), device=None,
-           **searcher_kw) -> SearchResult:
+           mesh=None, **searcher_kw) -> SearchResult:
     """One-shot convenience: ``search.driver.search(cluster, model,
     global_batch=..., validate_top=3)``."""
     extra_validate = {}
@@ -168,5 +168,5 @@ def search(cluster: ClusterSpec, model: ModelSpec, *,
     searcher = Searcher(model, global_batch=global_batch,
                         seq_len=seq_len, **searcher_kw)
     return searcher.search(cluster, validate_top=validate_top,
-                           executors=executors, device=device,
+                           executors=executors, device=device, mesh=mesh,
                            **extra_validate)

@@ -11,8 +11,16 @@ whose gradients come back ``hdim=Partial`` (the SplitAR grad path PR 6
 made executable) — then trained end to end via
 ``Program.compile_train`` + ``Session.train_step``, on the numpy
 simulator and, when asked, on a ``TorchExecutor`` (every virtual device
-one row of stacked buffers on one torch device), where the reference
+one row of stacked buffers on one torch device) or a ``DistExecutor``
+(every device on its own ``torch.distributed`` rank), where the reference
 runs a ``JaxExecutor`` on forced CPU meshes.
+
+On ranks (``"dist"``) every rank runs ``validate`` with the same
+arguments, and every decision must come out the same on every rank, or
+the ranks' collectives would part ways: the simulator's timings are rank
+0's, shared with every rank before the makespans are priced, and a
+candidate that fails on any rank is dropped on every rank before the next
+collective.  The report is then the same on every rank.
 
 Measuring is subtle: the SimulatorExecutor serializes every device onto
 one CPU, so raw wall time is nearly invariant across dp/pp splits (the
@@ -35,7 +43,7 @@ on the GPU, so its products are full fp32).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -232,7 +240,7 @@ class ExecutedCandidate:
     projected_makespan_s: float | None = None  # speed-scaled (hetero)
     proxy_predicted_s: float | None = None     # plan's own timetable
     loss: float | None = None
-    bit_exact: bool | None = None              # sim vs torch (None: sim only)
+    bit_exact: bool | None = None    # sim vs torch / dist (None: sim only)
     error: str | None = None
 
     @property
@@ -262,6 +270,9 @@ class ExecutedCandidate:
 class ValidationReport:
     executed: tuple[ExecutedCandidate, ...]
     speed_projected: bool
+    #: this rank's traffic in the ``"dist"`` bit-exactness runs
+    #: (``LoweringStats``), or ``None``; left out of comparisons
+    traffic: object = field(default=None, compare=False)
 
     def _comparable(self) -> list[ExecutedCandidate]:
         return [e for e in self.executed if e.error is None
@@ -305,7 +316,7 @@ class ValidationReport:
 
 
 def validate(cluster: ClusterSpec, ranked: list[RankedCandidate], *,
-             top_k: int = 3, executors=("sim",), device=None,
+             top_k: int = 3, executors=("sim",), device=None, mesh=None,
              repeats: int = 3, batch: int = 16, n_pairs: int = 8,
              d: int = 16, f: int = 32, max_micro: int = 8,
              speed_project: bool | None = None,
@@ -314,22 +325,31 @@ def validate(cluster: ClusterSpec, ranked: list[RankedCandidate], *,
     and compare cost-model ordering against measured makespans.
 
     ``executors=("sim", "torch")`` additionally runs each candidate on a
-    ``TorchExecutor(device)`` (``None`` meaning ``cuda``) and checks the
-    first step's loss and every weight gradient BITWISE against the
-    simulator, as the reference's ``("sim", "jax")`` does on its
-    JaxExecutor; ``"jax"`` raises.
+    ``TorchExecutor(device)`` (``None`` meaning ``cuda``), and
+    ``("sim", "dist")`` on a ``DistExecutor(mesh, device=device)`` across
+    the ranks (``mesh=None``: one over the world group), called on every
+    rank; either checks the first step's loss and every weight gradient
+    BITWISE against the simulator, as the reference's ``("sim", "jax")``
+    does on its JaxExecutor; ``"jax"`` raises.
     """
     from repro_torch import api
 
     import statistics
 
-    unknown = set(executors) - {"sim", "torch"}
+    unknown = set(executors) - {"sim", "torch", "dist"}
     if unknown:
         raise NotImplementedError(
             f"executors {sorted(unknown)}: the port validates on the "
-            f"simulator ('sim') and the TorchExecutor ('torch')")
+            f"simulator ('sim'), the TorchExecutor ('torch') and the rank "
+            f"executor ('dist')")
     # made before any candidate runs, so a missing GPU raises here
-    torch_ex = api.TorchExecutor(device) if "torch" in executors else None
+    checks = []
+    if "torch" in executors:
+        checks.append(api.TorchExecutor(device))
+    dist_ex = None
+    if "dist" in executors:
+        dist_ex = api.DistExecutor(mesh, device=device)
+        checks.append(dist_ex)
 
     if speed_project is None:
         speed_project = len({dt.tflops for dt in cluster.ranks}) > 1
@@ -361,8 +381,10 @@ def validate(cluster: ClusterSpec, ranked: list[RankedCandidate], *,
     # round), so a load spike on the shared CPU hits every candidate's
     # sample pool instead of biasing whichever was measured then
     for rep in range(1 + repeats):
-        for run in list(runners):
+        for run in runners:
             entry = run["entry"]
+            if entry.error is not None:
+                continue
             try:
                 t0 = time.perf_counter()
                 r = run["sess"].train_step(
@@ -371,7 +393,6 @@ def validate(cluster: ClusterSpec, ranked: list[RankedCandidate], *,
                 dt = time.perf_counter() - t0
             except Exception as e:  # noqa: BLE001 - isolate candidates
                 entry.error = f"{type(e).__name__}: {e}"
-                runners.remove(run)
                 continue
             if rep == 0:            # warmup: numpy caches, compiles
                 entry.loss = r.loss
@@ -381,6 +402,9 @@ def validate(cluster: ClusterSpec, ranked: list[RankedCandidate], *,
             rec = run["sess"].executor.last_tick_device_seconds
             for key, occurrences in rec.items():
                 run["ticks"].setdefault(key, []).extend(occurrences)
+    if dist_ex is not None:
+        _share_measurements(runners)
+    runners = [run for run in runners if run["entry"].error is None]
 
     # phase 3: re-price each candidate's executed timetable
     calibration: float | None = None
@@ -412,20 +436,60 @@ def validate(cluster: ClusterSpec, ranked: list[RankedCandidate], *,
                 calibration = base / entry.measured_makespan_s
             if calibration:
                 entry.proxy_predicted_s = base / calibration
-            if torch_ex is not None:
-                entry.bit_exact = _bit_exact(api, proxy, torch_ex, run["m"],
-                                             run["kind"])
+            if checks:
+                # every check runs (no short cut): a rank executor's runs
+                # are collective
+                same = [_bit_exact(api, proxy, ex, run["m"], run["kind"])
+                        for ex in checks]
+                entry.bit_exact = all(same)
         except Exception as e:  # noqa: BLE001 - isolate candidates
             entry.error = f"{type(e).__name__}: {e}"
-    return ValidationReport(tuple(out), speed_project)
+        if dist_ex is not None:
+            _agree(entry)
+    return ValidationReport(tuple(out), speed_project,
+                            dist_ex.traffic() if dist_ex else None)
 
 
-def _bit_exact(api, proxy: ProxyCase, torch_ex, m: int, kind: str) -> bool:
-    """One fresh train step on each executor; loss and every gradient
-    must match BITWISE (the proxy arithmetic is integer-exact)."""
+def _gather(value) -> list:
+    """``value`` from every rank of the world group, by rank."""
+    import torch.distributed as dist
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, value)
+    return every
+
+
+def _share_measurements(runners: list[dict]) -> None:
+    """Make phase 2's outcome the same on every rank: each candidate's
+    timings become rank 0's, and a candidate that failed on any rank
+    fails on every rank with the first such rank's error."""
+    every = _gather([(run["entry"].error, run["walls"], run["ticks"])
+                     for run in runners])
+    for i, run in enumerate(runners):
+        errors = [rk[i][0] for rk in every if rk[i][0] is not None]
+        if errors:
+            run["entry"].error = errors[0]
+        run["walls"], run["ticks"] = every[0][i][1], every[0][i][2]
+
+
+def _agree(entry: ExecutedCandidate) -> None:
+    """Make a candidate's phase 3 outcome the same on every rank: an error
+    on any rank drops it on every rank; it is bit-exact only where it is
+    on every rank."""
+    every = _gather((entry.error, entry.bit_exact))
+    errors = [e for e, _ in every if e is not None]
+    if errors:
+        entry.error, entry.bit_exact = errors[0], None
+    else:
+        entry.bit_exact = all(b for _, b in every)
+
+
+def _bit_exact(api, proxy: ProxyCase, executor, m: int, kind: str) -> bool:
+    """One fresh train step on the simulator and on ``executor``; loss
+    and every gradient must match BITWISE (the proxy arithmetic is
+    integer-exact)."""
     results = []
-    for executor in (api.SimulatorExecutor(), torch_ex):
-        sess = api.Session(proxy.program, 0, executor=executor)
+    for ex in (api.SimulatorExecutor(), executor):
+        sess = api.Session(proxy.program, 0, executor=ex)
         sess.load(proxy.weights)
         results.append(sess.train_step(proxy.feeds, num_microbatches=m,
                                        schedule=kind))

@@ -10,12 +10,16 @@ Phases, in the order given:
   q/k 192 with v 128, the edge cases), each against its plain version;
   the main ones timed against their bound and SDPA.
 * ``ssd`` and ``rglru``: phase 3's SSD and RG-LRU scan cases.
+* ``train``: phase 6, the production trainer on each of
+  ``chip_smoke.TRAIN_ARCHS``.
 * ``families``: phase 9, DeepSeek-V2, Grok-1, Qwen2-VL and Whisper
   served at published widths.
 * ``dist``: phase 10, ranks sharing the card: the rank selftest (comm
-  cases at 2 ranks, comm and api cases at 4), then phase 5's program on 4
-  ranks under dp2 x tp2 and under the hsize=2 dp2|tp2 strategy, against
-  phase 5's run (which it runs first, as ``chip_smoke.py`` does).
+  and async cases at 2 ranks, comm, api, async and search cases at 4),
+  then phase 5's program on 4 ranks under dp2 x tp2 and under the hsize=2
+  dp2|tp2 strategy, against phase 5's run (which it runs first, as
+  ``chip_smoke.py`` does), and phase 5's blocks under tp2 x pp2 as a
+  4-rank pipeline on ``DistAsyncExecutor`` and ``DistExecutor``.
 
 Each phase prints what it prints in ``chip_smoke.py`` and then one line
 ``<phase>: {json}``.  A phase that fails exits non-zero, as in
@@ -30,19 +34,19 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("attention", "ssd", "rglru", "families", "dist")
+PHASES = ("attention", "ssd", "rglru", "train", "families", "dist")
 
 
 def dist(torch, cs, fa, ref):
-    """Phase 5's run, its final state written for the ranks, then phase
-    10."""
+    """Phase 5's run, its state after step ``DIST_STEPS`` written for the
+    ranks, then phase 10."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="phase5-sim-") as d:
         _, ir_run = cs.phase_graph_ir(torch, fa, ref,
                                       cs.SimulatorReference(d))
     with tempfile.TemporaryDirectory(prefix="phase5-") as d:
         ref_state = cs.dist_reference(ir_run, d)
-        losses = ir_run["losses"]
+        losses = ir_run["losses"][:cs.DIST_STEPS]
         del ir_run
         return cs.phase_dist(torch, fa, ref, ref_state, losses)
 
@@ -73,6 +77,9 @@ def main(argv) -> int:
         "attention": lambda: cs.phase_attention(torch, fa, ref, gen),
         "ssd": lambda: cs.phase_ssd(torch, sk, ref, gen),
         "rglru": lambda: cs.phase_rglru(torch, rk, ref, gen),
+        "train": lambda: {arch: cs.phase_train(
+            torch, policy, {"flash": fa, "ssd": sk, "rglru": rk}, arch,
+            layers) for arch, layers in cs.TRAIN_ARCHS},
         "families": lambda: cs.phase_families(torch, policy, fa, ref),
         "dist": lambda: dist(torch, cs, fa, ref),
     }
@@ -82,6 +89,8 @@ def main(argv) -> int:
         if name == "families":
             fams, b1, _ = out
             out = {"runs": fams, "b1": b1}
+        elif name == "train":
+            out = {"runs": out}
         elif name == "dist":
             b1, ranks = out
             out = {"ranks": ranks, "b1": b1}
