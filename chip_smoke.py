@@ -175,11 +175,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    every rank at q (1, 6, 512, 128); each rank's split (pack, dispatch
    loop, comm into staging and exchanges, fetch), traffic, card and host
    peaks and its ticks' device times, and the overlap 1 - async loop /
-   rank executor's loop.  Then B1 at the three rank shapes against its
-   plain version, its bound and SDPA.
-11. the training line, the elastic line, the pipeline line, the families
-   line, the ranks line, the kernels line, then the card line, then the
-   result line.
+   rank executor's loop.  (e) In the same launch, once (d)'s state is
+   freed: one DeepSeek-V2 MoE layer at published widths (160 routed
+   experts top-6 at capacity factor 1.25, 2 shared, d_expert 1536), 4096
+   tokens, fp32, through ``apply_moe`` under the active (data=1, model=4)
+   mesh of the ranks (``launch/moe_ep.py``): each rank builds only its 40
+   experts, each from its own seed; routing (``top_e``, ``keep``) bitwise
+   the single-process dispatch's on every rank, y within normwise 1e-5 and
+   aux within 1e-6 relative of rank 0's single-process capacity dispatch
+   (which builds all 160), and the bytes staged for the one all-reduce
+   equal to the dry run's all-reduce bytes for that layer and mesh; the
+   times and each rank's card peak.  Then B1 at the three rank shapes
+   against its plain version, its bound and SDPA.
+11. production dry run (after phase 9, before phase 10): child processes
+   started after phase 5 (once its reference child has ended) run on the
+   host, with fake tensors and a fake
+   process group (nothing allocated, no card touched): (a) the roofline of
+   every applicable assigned arch x input shape on 16 x 16 with this
+   card's constants (``launch/roofline.py``), (b) the full dry runs of
+   Qwen2-1.5B and DeepSeek-V2 x train_4k (``launch/dryrun.py``), (c) the
+   anchor: phase 6's Qwen2-1.5B step on a 1 x 1 mesh, whose predicted peak
+   must lie within 20% of phase 6's measured peak of step 2 through the
+   plain versions, and the MFU its FLOPs and that measured step give, and
+   phase 10 (e)'s layer's collective bytes.
+12. the training line, the elastic line, the pipeline line, the families
+   line, the ranks line, the production line, the kernels line, then the
+   card line, then the result line.
 
 Needs a visible CUDA device and the repository's ``src/`` beside it; it
 imports nothing of JAX and nothing of the JAX package.
@@ -298,6 +319,21 @@ ROUTING_FLIP_MAX = 0.01
 #: (from a ``git archive``, on an H100 80GB HBM3 at 700 W) took 1220 s,
 #: past the 1200 s limit
 DIST_SWEEP = {2: "comm,async", 4: "comm,api,async,search"}
+#: phase 10 (e): one DeepSeek-V2 MoE layer at published widths (160 routed
+#: experts top-6 at capacity factor 1.25, 2 shared, d_expert 1536), fp32,
+#: EP_TOKENS tokens, expert-parallel over a (data, model) = EP_MESH mesh of
+#: the launch's ranks, against rank 0's single-process capacity dispatch:
+#: y normwise and aux relative limits (routing is held bitwise)
+EP_ARCH, EP_TOKENS, EP_MESH = "deepseek-v2-236b", 4096, (1, 4)
+EP_Y_NORMWISE, EP_AUX_REL = 1e-5, 1e-6
+#: phase 11: the production dry run in CPU children started after phase 5:
+#: the full dry runs (16 x 16, train_4k) and the anchor, phase 6's Qwen2-1.5B
+#: run (TRAIN_ARCHS[0], fp32, plain versions) on a 1 x 1 mesh, whose
+#: predicted peak must lie within ANCHOR_RTOL of phase 6's measured peak;
+#: the child's threads
+DRYRUN_FULL = (("qwen2-1.5b", "train_4k"), ("deepseek-v2-236b", "train_4k"))
+ANCHOR_RTOL = 0.20
+DRYRUN_THREADS = 1
 DIST_RANKS, DIST_STEPS, DIST_PP_MICRO = 4, 2, 4
 DIST_SWEEP_TIMEOUT, DIST_RUN_TIMEOUT = 180, 660
 
@@ -1375,9 +1411,15 @@ def train_kernels_vs_plain(torch, policy, cfg, kernels, per_step):
             apply_updates(params, grads, opt, AdamWConfig())
             del grads
             step = build_train_step(cfg, AdamWConfig(), TRAIN_MICRO)
-            params, opt, met = step(params, opt, batches[1])
-            out["loss"].append(met["loss"].item())
+            # step 2 alone: its card peak and time (phase 11's anchor)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_step = time.perf_counter()
+            params, opt, met = step(params, opt, batches[1])
+            torch.cuda.synchronize()
+            out["step2_s"] = time.perf_counter() - t_step
+            out["step2_peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["loss"].append(met["loss"].item())
             out["launches"] = {k: m.launches - before[k]
                                for k, m in kernels.items()}
             if host is None:
@@ -1430,7 +1472,14 @@ def train_kernels_vs_plain(torch, policy, cfg, kernels, per_step):
     if not ok:
         fail(f"{cfg.name}: training through the kernels disagrees with the "
              f"plain versions")
-    return {"loss_rel": lerr, "grad_normwise": gerr, "grad_worst": gname,
+    print(f"  step 2 alone: {k['step2_s'] * 1e3:.1f} ms through the kernels, "
+          f"{p['step2_s'] * 1e3:.1f} ms through the plain versions; card "
+          f"peak {k['step2_peak_bytes'] / 2**30:.3f} / "
+          f"{p['step2_peak_bytes'] / 2**30:.3f} GiB")
+    return {"step2_s": {"kernels": k["step2_s"], "plain": p["step2_s"]},
+            "step2_peak_bytes": {"kernels": k["step2_peak_bytes"],
+                                 "plain": p["step2_peak_bytes"]},
+            "loss_rel": lerr, "grad_normwise": gerr, "grad_worst": gname,
             "param_normwise": perr, "param_worst": pname,
             "state_normwise": serr, "state_worst": sname,
             "zero_start_max_lr": zlr, "zero_start_worst": zname}
@@ -2518,6 +2567,218 @@ def phase_families(torch, policy, fa, ref):
     return runs, b1, t_phase
 
 
+def dryrun_child_main(path, gpu_name, part) -> int:
+    """One part of phase 11 in a child process on the host (fake tensors
+    and a fake process group: nothing is allocated and no card is touched):
+    ``"roofline"``: the roofline of every applicable assigned arch x input
+    shape on 16 x 16 with the card's constants; ``"full:<i>"``: the full
+    dry run of ``DRYRUN_FULL[i]``, and with ``i == 0`` the anchor (phase
+    6's Qwen2-1.5B training step, ``TRAIN_ARCHS[0]``, fp32, plain versions,
+    on a 1 x 1 mesh) and the collective bytes of phase 10 (e)'s MoE layer
+    on its mesh.  Writes one JSON file to ``path``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.launch.specs import INPUT_SHAPES, InputShape
+    t0 = time.perf_counter()
+    out = {}
+    if part == "roofline":
+        out["roofline"] = []
+        for arch in dryrun.assigned_archs():
+            for shape in INPUT_SHAPES:
+                r = roofline.roofline(arch, shape, gpu=gpu_name,
+                                      verbose=False)
+                r.pop("components", None)
+                out["roofline"].append(r)
+    else:
+        i = int(part.split(":")[1])
+        arch, shape = DRYRUN_FULL[i]
+        out["full"] = [dryrun.dryrun_one(arch, shape, gpu=gpu_name,
+                                         verbose=False)]
+        if i == 0:
+            arch, layers = TRAIN_ARCHS[0]
+            out["anchor"] = dryrun.dryrun_one(
+                arch, "anchor", gpu=gpu_name,
+                cfg=train_config(arch, layers),
+                mesh=LogicalMesh(("data", "model"), (1, 1)),
+                shape=InputShape("anchor", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                num_microbatches=TRAIN_MICRO, dtype=torch.float32,
+                verbose=False)
+            out["ep_layer"] = roofline.moe_component(
+                get_config(EP_ARCH), LogicalMesh(("data", "model"), EP_MESH),
+                EP_TOKENS, torch.float32)
+    out["seconds"] = {part: time.perf_counter() - t0}
+    Path(path).write_text(json.dumps(out))
+    return 0
+
+
+class DryRunChild:
+    """Phase 11's dry run (:func:`dryrun_child_main`) in child processes,
+    one a part, started after phase 5 beside the card phases at a lower
+    priority (``nice`` 10: the card phases' host work goes first);
+    :meth:`result` waits for them.  They are killed if the script ends
+    first."""
+
+    def __init__(self, out_dir, gpu_name):
+        import atexit
+        import os
+        self.gpu = gpu_name
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS=str(DRYRUN_THREADS),
+                   MKL_NUM_THREADS=str(DRYRUN_THREADS),
+                   CUDA_VISIBLE_DEVICES="")
+        parts = ["roofline"] + [f"full:{i}" for i in range(len(DRYRUN_FULL))]
+        self.procs = []
+        for part in parts:
+            path = Path(out_dir) / f"dryrun-{part.replace(':', '-')}.json"
+            self.procs.append((path, subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+                 "chip_smoke.dryrun_child_main(*sys.argv[1:]))",
+                 str(path), gpu_name, part], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, preexec_fn=lambda: os.nice(10))))
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        for _, proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def result(self):
+        """(the parts' reports merged, seconds waited for them)."""
+        t0 = time.perf_counter()
+        rep = {"gpu": self.gpu, "full": [], "seconds": {}}
+        for path, proc in self.procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                fail(f"phase 11's dry run exited with {proc.returncode}:\n"
+                     f"{out[-4000:]}")
+            part = json.loads(path.read_text())
+            path.unlink()
+            rep["full"] += part.pop("full", [])
+            rep["seconds"].update(part.pop("seconds"))
+            rep.update(part)
+        return rep, time.perf_counter() - t0
+
+
+def gpu_name_from_smi() -> str:
+    """The card's name as nvidia-smi gives it (phase 11's constants)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0] \
+        .strip()
+
+
+def phase_production_dryrun(child, train) -> dict:
+    """Phase 11: the dry run's report (the children started after phase
+    5), the anchor's predicted peak against phase 6's measured plain-version peak
+    of the same step, and the MFU the dry run's FLOPs and the measured
+    step give on this card."""
+    from repro_torch.launch.hardware import get_gpu
+    from repro_torch.models.moe import DTENSOR_FORMULATIONS
+    print("== phase 11: production dry run (fake world and tensors, in "
+          "host children started after phase 5)")
+    rep, waited = child.result()
+    gpu = get_gpu(rep["gpu"])
+    print(f"  card constants: {gpu.name}: bf16 {gpu.peak_flops['bfloat16']:.3g}"
+          f" FLOP/s, fp32 {gpu.peak_flops['float32']:.3g}, HBM "
+          f"{gpu.hbm_bw:.3g} B/s, NVLink {gpu.nvlink_bw:.3g} B/s a direction "
+          f"in nodes of {gpu.node_gpus}, network {gpu.network_bw:.3g} B/s; "
+          f"the parts took " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                         rep["seconds"].items())
+          + f"; waited {waited:.1f} s")
+    print("  (a) roofline on 16x16, per device (arch x shape: the step's "
+          "arguments + the largest component's temps, terms, bottleneck, "
+          "MODEL_FLOPS, useful share, MFU at the bound on 256 cards):")
+    bad = []
+    for r in rep["roofline"]:
+        if "skipped" in r:
+            print(f"    {r['arch']:18s} {r['shape']:12s} skipped: "
+                  f"{r['skipped'][:40]}")
+            continue
+        t = r["roofline_seconds"]
+        print(f"    {r['arch']:18s} {r['shape']:12s} "
+              f"{r['bytes_per_device']['estimate'] / 2**30:6.2f} GiB, compute "
+              f"{t['compute'] * 1e3:10.2f} ms, memory {t['memory'] * 1e3:10.2f}"
+              f" ms, collective {t['collective'] * 1e3:10.2f} ms -> "
+              f"{r['bottleneck']:10s} MODEL_FLOPS {r['model_flops_global']:.3e}"
+              f", useful {r['useful_flops_ratio']:.2f}, MFU "
+              f"{r['mfu_at_bound']:.4f}"
+              + (f", MoE {r['moe']['formulation']}" if "moe" in r else ""))
+        if r["gpu"] != gpu.name or r["chips"] != 256:
+            bad.append(r["arch"])
+    if bad:
+        fail(f"phase 11: rooflines not on 256 {gpu.name}: {bad}")
+    print("  (b) full dry runs, per device:")
+    for r in rep["full"]:
+        b, t = r["bytes_per_device"], r["roofline_seconds"]
+        print(f"    {r['arch']} x {r['shape']} @ {r['mesh']}: args "
+              f"{b['arguments'] / 2**30:.2f} GiB, temps "
+              f"{b['temps'] / 2**30:.2f} GiB, peak {b['peak'] / 2**30:.2f} GiB"
+              f"; flops {r['per_device']['flops']:.3e}, HBM "
+              f"{r['per_device']['hbm_bytes']:.3e} B, collectives "
+              f"{r['per_device']['collectives']}; -> {r['bottleneck']} "
+              f"({r['run_s']:.0f} s)"
+              + (f"; MoE {r['moe']['formulation']}" if "moe" in r else ""))
+    print("  MoE on DTensors: " + "; ".join(
+        f"{k}: {v}" for k, v in DTENSOR_FORMULATIONS.items()))
+    a = rep["anchor"]
+    arch, layers = TRAIN_ARCHS[0]
+    got = train[arch]["step2_peak_bytes"]["plain"]
+    step_s = train[arch]["step2_s"]["plain"]
+    want = a["bytes_per_device"]["peak"]
+    rel = (want - got) / got
+    flops = a["per_device"]["flops"]
+    mfu = flops / step_s / gpu.peak_flops["float32"]
+    ok = abs(rel) <= ANCHOR_RTOL
+    print(f"  (c) anchor: {arch} {layers} layers, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {TRAIN_MICRO} microbatches, remat, fp32, plain "
+          f"versions, 1x1: predicted peak {want / 2**30:.3f} GiB (args "
+          f"{a['bytes_per_device']['arguments'] / 2**30:.3f}), measured "
+          f"{got / 2**30:.3f} GiB (phase 6, step 2 through the plain "
+          f"versions): {rel:+.1%} (limit +-{ANCHOR_RTOL:.0%}): "
+          f"{'ok' if ok else 'FAIL'}; {flops:.3e} FLOPs in the measured "
+          f"{step_s * 1e3:.1f} ms: MFU {mfu:.3f} of fp32 peak")
+    if not ok:
+        fail("phase 11: the dry run's predicted peak misses phase 6's")
+    return {"roofline": rep["roofline"], "full": rep["full"],
+            "anchor": {"predicted_peak_bytes": want, "measured_peak_bytes":
+                       got, "rel": rel, "flops": flops, "step_s": step_s,
+                       "mfu_fp32": mfu},
+            "ep_layer": rep["ep_layer"], "seconds": rep["seconds"],
+            "waited_s": waited}
+
+
+def check_ep(ranks, ep_layer) -> dict:
+    """Phase 10 (e)'s checks on rank 0's report."""
+    e = ranks[0]["e"]
+    ar = int(ep_layer["collectives"].get("all-reduce", 0))
+    ok = (e["routing_bitwise"] and e["y_normwise"] <= EP_Y_NORMWISE
+          and e["aux_rel"] <= EP_AUX_REL and e["staged_bytes"] == ar)
+    peaks = [p / 2**30 for p in e["rank_peaks_bytes"]]
+    print(f"  (e) {EP_ARCH} MoE layer at published widths, {EP_TOKENS} "
+          f"tokens, fp32, expert-parallel on a {e['mesh']} mesh of the "
+          f"ranks ({e['experts_per_rank']} experts a rank, each from its own "
+          f"seed) vs rank 0's single-process capacity dispatch: routing "
+          f"bitwise {e['routing_bitwise']}, y normwise {e['y_normwise']:.2e} "
+          f"(limit {EP_Y_NORMWISE:.0e}), aux rel {e['aux_rel']:.2e} (limit "
+          f"{EP_AUX_REL:.0e}); staged for the all-reduce "
+          f"{e['staged_bytes']} B, the dry run's all-reduce on that mesh "
+          f"{ar} B (its all-gather, {int(ep_layer['collectives'].get('all-gather', 0))}"
+          f" B, is the shared experts' weights, which each rank builds "
+          f"whole); EP call {e['ep_s'] * 1e3:.1f} ms, experts built in "
+          f"{e['build_s']:.1f} s, reference built in {e['ref_build_s']:.1f} "
+          f"s and run in {e['ref_s'] * 1e3:.1f} ms; card peak a rank "
+          f"through the call {', '.join(f'{p:.2f}' for p in peaks)} GiB: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("phase 10 (e): the expert-parallel layer disagrees")
+    return e
+
+
 def flat_parts(st):
     """A ShardedTensor's parts raveled and concatenated in device order:
     every replica in its own place, so a replica that differs from its
@@ -2945,6 +3206,17 @@ def dist_rank_main(argv=None) -> int:
 
     # (d) the blocks under tp2 x pp2: a real pipeline across the ranks
     out["d"] = rank_pipeline(torch, fa, mesh, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d"]["host_left_gib"] = trim_host()
+
+    # (e) one DeepSeek-V2 MoE layer expert-parallel over the ranks
+    from repro_torch.launch import moe_ep
+    out["e"] = moe_ep.run(mesh, moe_ep.parse([
+        "--arch", EP_ARCH, "--tokens", str(EP_TOKENS), "--data",
+        str(EP_MESH[0]), "--model", str(EP_MESH[1])]))
+    gc.collect()
+    torch.cuda.empty_cache()
     print("DIST_RANK_JSON " + json.dumps(out), flush=True)
     dist.destroy_process_group()
     return 0
@@ -3133,7 +3405,7 @@ def check_pipeline(ranks, total_mem):
     return overlap, launches
 
 
-def phase_dist(torch, fa, ref, ref_state, ir_losses):
+def phase_dist(torch, fa, ref, ref_state, ir_losses, ep_layer):
     """Phase 10: ranks sharing the card.  (a) The selftest at
     ``DIST_SWEEP`` ranks over gloo (the comm cases, and at 4 ranks the api
     cases too), each case bitwise against the port's simulator in every
@@ -3245,6 +3517,7 @@ def phase_dist(torch, fa, ref, ref_state, ir_losses):
                                      [dp, dp, tp, tp])
     overlap, d_launches = check_pipeline(
         ranks, torch.cuda.get_device_properties(0).total_memory)
+    ep = check_ep(ranks, ep_layer)
     print(f"  ranks' run {run_s:.1f} s")
     # B1 at this path's shapes: (b)'s and (c)'s tp2 ranks take q
     # (2, 6, 512, 128); (c)'s dp2 ranks q (1, 12, 512, 128)
@@ -3273,7 +3546,7 @@ def phase_dist(torch, fa, ref, ref_state, ir_losses):
         "sweep": sweep, "ranks": ranks, "losses": {"b": b_losses,
                                                    "c": c_losses},
         "loss_rel": {"b": b_rel, "c": c_rel}, "overlap_d": overlap,
-        "run_s": run_s, "phase_s": t_phase}
+        "ep_e": ep, "run_s": run_s, "phase_s": t_phase}
 
 
 def main() -> int:
@@ -3337,6 +3610,10 @@ def main() -> int:
     total = {k: sum(p[k] for p in paths.values()) for k in paths[ARCHS[0]]}
     ir, ir_run = phase_graph_ir(torch, fa, ref, sim_ref)
     sim_dir.cleanup()
+    # phase 11's dry run starts once phase 5's reference child has ended
+    # (the two would share the host's cores), and ends before phase 10
+    dry_dir = tempfile.TemporaryDirectory(prefix="phase11-")
+    dry_child = DryRunChild(dry_dir.name, gpu_name_from_smi())
     total["flash"] += ir["launches"]
     kmods = {"flash": fa, "ssd": sk, "rglru": rk}
     train = {arch: phase_train(torch, policy, kmods, arch, layers)
@@ -3356,8 +3633,11 @@ def main() -> int:
     for run in fams.values():
         for k, n in run["launches"].items():
             total[k] += n
+    production = phase_production_dryrun(dry_child, train)
+    dry_dir.cleanup()
     with ref_dir:
-        dist_b1, ranks = phase_dist(torch, fa, ref, ref_state, ir_losses)
+        dist_b1, ranks = phase_dist(torch, fa, ref, ref_state, ir_losses,
+                                    production["ep_layer"])
     total["flash"] += sum(t["launches"] for t in dist_b1)
 
     def training(kind):
@@ -3428,6 +3708,7 @@ def main() -> int:
     print("pipeline: " + json.dumps(pipeline))
     print("families: " + json.dumps({"runs": fams, "phase_s": fam_s}))
     print("ranks: " + json.dumps(ranks))
+    print("production: " + json.dumps(production))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

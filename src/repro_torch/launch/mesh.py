@@ -20,8 +20,12 @@ device on its own:
   (pass ``backend="gloo"`` to share a GPU); on the CPU, ``"gloo"``, the
   only CPU backend.
 
-``make_production_mesh`` and ``make_smoke_mesh`` (the reference's
-production and test meshes over TPU chips) have no counterpart yet.
+The reference's production and test meshes over TPU chips are here as
+logical meshes (:class:`LogicalMesh`: axis names, sizes, device ids; no
+device state): :func:`make_production_mesh` and :func:`make_smoke_mesh`.
+A logical mesh becomes a ``DeviceMesh`` over a fake world of its size for
+the dry run (:meth:`LogicalMesh.device_mesh`), or one process group per
+row of each axis over real ranks (:meth:`LogicalMesh.rank_groups`).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -166,3 +171,87 @@ def make_runtime_mesh(n_ranks: int | None = None, *,
     dist.barrier(**({"device_ids": [devices[rank].index]}
                     if chosen == "nccl" else {}))
     return mesh
+
+
+# ---------------------------------------------------------------------------
+# logical meshes (the reference's production and smoke meshes)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LogicalMesh:
+    """Named axes over ``size`` devices, numbered row-major (the last axis
+    minor), as ``np.array(devices).reshape(shape)`` lays out the
+    reference's ``jax.sharding.Mesh``.  ``shape`` maps each axis name to its
+    size, as a JAX mesh's does; nothing here touches a device."""
+
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.axis_sizes))
+
+    @property
+    def devices(self) -> np.ndarray:
+        """Device ids (ranks) laid out in the mesh's shape."""
+        return np.arange(self.size).reshape(self.axis_sizes)
+
+    def label(self) -> str:
+        return "x".join(str(n) for n in self.axis_sizes)
+
+    def device_mesh(self, device_type: str = "cpu"):
+        """A ``DeviceMesh`` of this shape and these axis names over the
+        world process group, which must have ``size`` ranks (the dry run's
+        fake world)."""
+        from torch.distributed.device_mesh import init_device_mesh
+        if not dist.is_initialized() or dist.get_world_size() != self.size:
+            raise RuntimeError(
+                f"a {self.label()} DeviceMesh needs a world of {self.size} "
+                f"ranks")
+        return init_device_mesh(device_type, self.axis_sizes,
+                                mesh_dim_names=self.axis_names)
+
+    def rank_groups(self, ranks: "RankMesh") -> dict[str, object]:
+        """For each axis, the process group of this rank's row along it
+        (the ranks that differ from this one in that axis alone).  Every
+        rank makes every row's group, in one order, as ``dist.new_group``
+        asks; ``None`` stands for the whole world."""
+        if ranks.world != self.size:
+            raise ValueError(f"a {self.label()} mesh needs {self.size} "
+                             f"ranks, the world has {ranks.world}")
+        ids = self.devices
+        out = {}
+        for d, name in enumerate(self.axis_names):
+            rows = np.moveaxis(ids, d, -1).reshape(-1, self.axis_sizes[d])
+            for row in rows:
+                group = ranks.group(row.tolist())
+                if ranks.rank in row:
+                    out[name] = group
+        return out
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """This rank's position along each axis."""
+        idx = np.unravel_index(rank, self.axis_sizes)
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """Single pod: (data=16, model=16) = 256 devices; multi-pod:
+    (pod=2, data=16, model=16) = 512, the ``pod`` axis carrying cross-pod
+    data parallelism: the reference's shapes (``repro/launch/mesh.py``)."""
+    if multi_pod:
+        return LogicalMesh(("pod", "data", "model"), (2, 16, 16))
+    return LogicalMesh(("data", "model"), (16, 16))
+
+
+def make_smoke_mesh(n_devices: int | None = None,
+                    axes=("data", "model")) -> LogicalMesh:
+    """A tiny mesh: (1, n) over two axes, or (n,) over one.  ``n`` defaults
+    to 1, the one device a process of the port drives."""
+    n = n_devices or 1
+    shape = (1, n) if len(axes) == 2 else (n,)
+    return LogicalMesh(tuple(axes), shape)

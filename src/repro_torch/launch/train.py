@@ -15,8 +15,10 @@ the autograd of their plain versions.
       --batch 4 --seq 128 --elastic-probe
 
 ``--reduced`` swaps in the smoke-scale variant of the config; ``--layers``
-cuts the depth and keeps the widths.  The reference's mesh and sharding
-specs have no meaning on one device and are left out.
+cuts the depth and keeps the widths.  Each step runs under the smoke mesh
+(``make_smoke_mesh()``, (data=1, model=1)), as the reference's does, so
+that an MoE layer takes the expert-parallel formulation where the
+reference's trainer does (4096 tokens a microbatch or more).
 """
 
 from __future__ import annotations
@@ -35,8 +37,10 @@ from ..device import resolve_device
 from ..kernels import flash_attention, rglru_scan, ssd_scan
 from ..models.model import init_params, token_embeds
 from ..optim.adamw import AdamWConfig, init_opt_state
+from ..sharding.hints import use_mesh
 from ..train.steps import build_train_step
 from ..tree import named_leaves
+from .mesh import make_smoke_mesh
 
 #: the kernel wrappers whose launches each step reports
 KERNELS = {"flash": flash_attention, "ssd": ssd_scan, "rglru": rglru_scan}
@@ -215,13 +219,17 @@ def main(argv=None) -> dict:
            "losses": [], "grad_norms": [], "lrs": [], "step_ms": [],
            "launches": []}
     rng = np.random.default_rng(0)
+    # the step under the smoke mesh, as the reference runs it (its
+    # param_specs there are computed and never used: not copied)
+    mesh = make_smoke_mesh()
     sync()
     t0 = time.time()
     for step in range(start, start + args.steps):
         before = {k: mod.launches for k, mod in KERNELS.items()}
         batch = make_batch(corpus, cfg, args.batch, args.seq, rng, device)
         t_step = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        with use_mesh(mesh):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         sync()
         out["step_ms"].append((time.perf_counter() - t_step) * 1e3)
         out["launches"].append({k: mod.launches - before[k]

@@ -4,9 +4,9 @@
 Every block is a pair ``init_*(generator, ...) -> params`` /
 ``apply_*(params, x, ...) -> y`` over plain dicts of tensors, laid out as in
 the JAX package so that its parameters convert leaf for leaf
-(:mod:`repro_torch.convert`).  The JAX package's sharding hints
-(``repro.sharding.hints``: ``hint``, ``batch_axes``) are identities
-without a mesh; the port has no mesh and drops them.
+(:mod:`repro_torch.convert`).  The sharding hint of the JAX package's
+decode attention is here (:mod:`repro_torch.sharding.hints`), and a width
+split into heads goes through ``hints.split_heads`` first.
 
 Attention runs through :mod:`repro_torch.kernels.ops`, which dispatches
 between the Hopper flash-attention kernel and its plain version.  MLA's
@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.policy import use_kernels
+from ..sharding.hints import (batch_axes, hint, is_dtensor, keep_layout,
+                              local_call, shardwise, split_heads, unshard)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -145,9 +147,35 @@ def init_attention(generator, cfg: ModelConfig, dtype, device,
 def cache_write(buf, new, idx: int):
     """Write ``new`` (B, s, ...) into ``buf`` (B, S, ...) at position
     ``idx`` and return ``buf``.  The port writes the cache in place, where
-    the JAX package builds a new buffer; the values are the same."""
+    the JAX package builds a new buffer; the values are the same.  Under
+    the dry run's mesh, where the cache's sequence is over ``model``, each
+    device writes the positions it holds."""
+    if is_dtensor(buf):
+        return _cache_write_sharded(buf, new, idx)
     buf[:, idx:idx + new.shape[1]] = new.to(buf.dtype)
     return buf
+
+
+def _cache_write_sharded(buf, new, idx: int):
+    from torch.distributed.tensor import Replicate
+    dm = buf.device_mesh
+    seq = [i for i, p in enumerate(buf.placements)
+           if p.is_shard() and p.dim == 1]
+    new_pl = [Replicate() if i in seq else p
+              for i, p in enumerate(buf.placements)]
+
+    def local(bl, nl):
+        lo = 0
+        for i in seq:    # this device's first position
+            lo = lo * dm.shape[i] + dm.get_coordinate()[i]
+        lo *= bl.shape[1]
+        a, z = max(idx, lo), min(idx + nl.shape[1], lo + bl.shape[1])
+        if a < z:
+            bl[:, a - lo:z - lo] = nl[:, a - idx:z - idx].to(bl.dtype)
+        return bl
+
+    return local_call(local, (buf, new), (list(buf.placements), new_pl),
+                      list(buf.placements), dm)
 
 
 _CHUNK_Q = 1024
@@ -163,12 +191,15 @@ def _sdpa_block(q, k, v, *, causal, window, q_offset, length_mask,
     _, sk, kh, _ = k.shape
     rep = h // kh
     if kv_seq_hint:
-        qg = q.reshape(b, sq, kh, rep, hd)
+        # the cache's sequence is over model: the one query's heads whole
+        qg = unshard(q, "model").reshape(b, sq, kh, rep, hd)
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float()
     else:
         kq = k.repeat_interleave(rep, dim=2)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, kq).float()
     logits = logits / math.sqrt(hd)
+    if kv_seq_hint:
+        logits = hint(logits, batch_axes(), None, None, None, "model")
     qi = torch.arange(sq, device=q.device) + q_offset
     ki = torch.arange(sk, device=q.device)
     if causal or window is not None:
@@ -205,6 +236,9 @@ def sdpa(q, k, v, *, causal: bool, window: int | None = None,
     """
     b, sq, h, hd = q.shape
     _, sk, kh, _ = k.shape
+    if is_dtensor(q) and not kv_seq_hint and length_mask is None:
+        return _sdpa_sharded(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
     if (use_kernels(q.device) and length_mask is None and q_offset == 0
             and sq % 128 == 0 and sk % 128 == 0 and hd % 8 == 0):
         out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -220,6 +254,44 @@ def sdpa(q, k, v, *, causal: bool, window: int | None = None,
     return _sdpa_block(q, k, v, causal=causal, window=window,
                        q_offset=q_offset, length_mask=length_mask,
                        kv_seq_hint=kv_seq_hint)
+
+
+def _sdpa_sharded(q, k, v, *, causal, window, q_offset):
+    """Attention on DTensors (the dry run), by shards: each device runs
+    :func:`sdpa` on its batch shard and, where the head count divides the
+    ``model`` axis, its query heads, each against the KV heads they read:
+    its own KV heads where their count divides ``model`` too, else picked
+    from K/V replicated over ``model``.  DTensor cannot propagate the
+    (batch x heads) products of the plain version itself."""
+    from torch.distributed.tensor import Replicate, Shard
+    dm = q.device_mesh
+    names = tuple(dm.mesh_dim_names)
+    h, kh = q.shape[2], k.shape[2]
+    tp = dm.shape[names.index("model")] if "model" in names else 1
+    heads = "model" in names and h % tp == 0
+    bd = set(batch_axes() or ())
+
+    def placements(shard_heads):   # a mesh dim of one device: replicated
+        return tuple(Replicate() if dm.shape[i] == 1
+                     else Shard(0) if a in bd and q.shape[0] % dm.shape[i] == 0
+                     else Shard(2) if a == "model" and shard_heads
+                     else Replicate() for i, a in enumerate(names))
+
+    kv_heads = heads and kh % tp == 0
+    qp, kp = placements(heads), placements(kv_heads)
+    h0 = dm.get_local_rank("model") * (h // tp) if heads else 0
+
+    def local(ql, kl, vl):
+        if kv_heads:      # this device's KV heads are the ones it reads
+            return sdpa(ql, kl, vl, causal=causal, window=window,
+                        q_offset=q_offset)
+        idx = (h0 + torch.arange(ql.shape[2], device=ql.device)) \
+            // (h // kh)
+        return sdpa(ql, kl.index_select(2, idx), vl.index_select(2, idx),
+                    causal=causal, window=window, q_offset=q_offset)
+
+    return local_call(local, (q, k, v), (list(qp), list(kp), list(kp)),
+                      list(qp), dm)
 
 
 def apply_attention(p, x, cfg: ModelConfig, *, positions=None,
@@ -246,9 +318,9 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions=None,
     v = src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, H, hd)
-    k = k.reshape(b, src.shape[1], K, hd)
-    v = v.reshape(b, src.shape[1], K, hd)
+    q = split_heads(q, H).reshape(b, s, H, hd)
+    k = split_heads(k, K).reshape(b, src.shape[1], K, hd)
+    v = split_heads(v, K).reshape(b, src.shape[1], K, hd)
     if use_rope and kv_src is None:
         if cfg.mrope and positions3 is not None:
             q = apply_mrope(q, positions3, cfg.rope_theta)
@@ -272,7 +344,7 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions=None,
         new_cache = {"k": ck, "v": cv, "idx": idx + s}
     else:
         y = sdpa(q, k, v, causal=causal, window=window)
-    out = y.reshape(b, s, H * hd) @ p["wo"]
+    out = keep_layout(y.reshape(b, s, H * hd)) @ p["wo"]
     return out, new_cache
 
 
@@ -312,8 +384,11 @@ def apply_mla(p, x, cfg: ModelConfig, *, positions=None, causal=True,
     H = cfg.n_heads
     b, s, _ = x.shape
     qd = m.qk_nope_dim + m.qk_rope_dim
-    q = (x @ p["wq_a"]) @ p["wq_b"] if m.q_lora else x @ p["wq"]
-    q_nope, q_rope = q.reshape(b, s, H, qd).split(
+    # the low-rank query whole over model (the identity without a DTensor
+    # mesh): wq_b's columns are over model, its rows cannot be as well
+    q = hint(x @ p["wq_a"], batch_axes(), None, None) @ p["wq_b"] \
+        if m.q_lora else x @ p["wq"]
+    q_nope, q_rope = split_heads(q, H).reshape(b, s, H, qd).split(
         [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     if positions is not None:
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -334,14 +409,26 @@ def apply_mla(p, x, cfg: ModelConfig, *, positions=None, causal=True,
         k_rope, q_offset = r_all[:, :, None, :], idx
 
     sk = c_kv.shape[1]
-    k_nope, v = (c_kv @ p["wkv_b"]).reshape(
+    if cache is None:
+        kv = split_heads(c_kv @ p["wkv_b"], H)
+    else:
+        # the cache's sequence is over model under the dry run's mesh:
+        # each device expands its own positions with the whole wkv_b
+        bd = batch_axes()
+        kv = shardwise(torch.matmul, (c_kv, unshard(p["wkv_b"], "model")),
+                       ((bd, "model"), ()),
+                       ((b, sk, p["wkv_b"].shape[1]),), ((bd, "model"),))
+    k_nope, v = kv.reshape(
         b, sk, H, m.qk_nope_dim + m.v_head_dim).split(
         [m.qk_nope_dim, m.v_head_dim], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(b, sk, H, m.qk_rope_dim)], dim=-1)
+    # the rope key broadcast over the heads, laid out as k_nope's heads
+    k_rope = hint(k_rope.expand(b, sk, H, m.qk_rope_dim), batch_axes(),
+                  None, "model", None)
+    k = torch.cat([k_nope, k_rope], dim=-1)
     qh = torch.cat([q_nope, q_rope], dim=-1)
     y = sdpa(qh, k, v, causal=causal and cache is None, q_offset=q_offset,
              kv_seq_hint=cache is not None,
              length_mask=None if valid is None
              else valid[None, :].expand(b, sk))
-    out = y.reshape(b, s, H * m.v_head_dim) @ p["wo"]
+    out = keep_layout(y.reshape(b, s, H * m.v_head_dim)) @ p["wo"]
     return out, new_cache

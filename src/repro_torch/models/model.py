@@ -12,8 +12,11 @@ package is here: ``"dense"`` (GQA or MLA attention), ``"moe"``,
 ``audio``: LayerNorm, GELU, no RoPE, cross-attention to the encoder's
 output).  Inputs are tokens, embeddings (``input_kind == "embeds"``: no
 embedding table, M-RoPE ``positions3``) or tokens with audio frames
-(``"audio"``).  The JAX package's sharding hints are identities without a
-mesh and are dropped.
+(``"audio"``).  The sharding hints sit where the JAX package has them
+(:mod:`repro_torch.sharding.hints`): identities without an active mesh
+or on plain tensors.  Under the dry run's DTensor mesh each block's, the
+embedding's and the head's weights are also gathered over the batch axes
+where they are used (FSDP, ``hints.gather_weights``).
 
 Public entry points:
   init_params(cfg, *, generator, device, dtype)
@@ -32,6 +35,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..sharding.hints import (batch_axes, gather_weights, hint, is_dtensor,
+                              pin_residual, shardwise)
 from ..tree import tree_leaves, tree_map
 from .config import ModelConfig
 from .layers import (_init, apply_attention, apply_mla, apply_mlp,
@@ -181,6 +186,7 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, ctx: dict, cache=None):
     napp = _norm_apply(cfg)
     eps = cfg.norm_eps
     aux = None
+    p = gather_weights(p)
 
     def attn_call(ap, h, *, window=None, cross=False, c=None):
         if cfg.mla and not cross:
@@ -196,16 +202,16 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, ctx: dict, cache=None):
 
     if kind in ("dense", "moe"):
         y, nc = attn_call(p["attn"], napp(p["n1"], x, eps), c=cache)
-        x = x + y
+        x = pin_residual(x + y)
         h = napp(p["n2"], x, eps)
         if kind == "moe":
             y2, aux = apply_moe(p["moe"], h, cfg)
         else:
             y2 = apply_mlp(p["mlp"], h, cfg.mlp)
-        return x + y2, nc, aux
+        return pin_residual(x + y2), nc, aux
     if kind == "mamba":
         y, nc = apply_mamba2(p["mixer"], napp(p["n1"], x, eps), cfg, cache)
-        return x + y, nc, aux
+        return pin_residual(x + y), nc, aux
     if kind in ("griffin", "griffin_tail"):
         new_caches = []
         for j, sub in enumerate(griffin_pattern(cfg, kind)):
@@ -217,23 +223,26 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, ctx: dict, cache=None):
             else:
                 y, nc = attn_call(sp["mixer"], h, window=cfg.hybrid.window,
                                   c=cj)
-            x = x + y
-            x = x + apply_mlp(sp["mlp"], napp(sp["n2"], x, eps), cfg.mlp)
+            x = pin_residual(x + y)
+            x = pin_residual(
+                x + apply_mlp(sp["mlp"], napp(sp["n2"], x, eps), cfg.mlp))
             new_caches.append(nc)
         return x, (new_caches if cache is not None else None), aux
     if kind == "enc":
         y, _ = apply_attention(p["attn"], napp(p["n1"], x, eps), cfg,
                                causal=False, use_rope=False)
-        x = x + y
-        return x + apply_mlp(p["mlp"], napp(p["n2"], x, eps), "gelu"), \
+        x = pin_residual(x + y)
+        return pin_residual(
+            x + apply_mlp(p["mlp"], napp(p["n2"], x, eps), "gelu")), \
             None, aux
     if kind == "dec":
         c_self = cache["self"] if cache is not None else None
         y, nc = attn_call(p["attn"], napp(p["n1"], x, eps), c=c_self)
-        x = x + y
+        x = pin_residual(x + y)
         yx, _ = attn_call(p["xattn"], napp(p["nx"], x, eps), cross=True)
-        x = x + yx
-        x = x + apply_mlp(p["mlp"], napp(p["n2"], x, eps), "gelu")
+        x = pin_residual(x + yx)
+        x = pin_residual(x + apply_mlp(p["mlp"], napp(p["n2"], x, eps),
+                                       "gelu"))
         return x, ({"self": nc} if nc is not None else None), aux
     raise ValueError(kind)
 
@@ -242,12 +251,20 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, ctx: dict, cache=None):
 # parameter init
 # ---------------------------------------------------------------------------
 
+def _shapes_only(device) -> bool:
+    """On the ``meta`` device (shapes without storage) a stack is not
+    filled layer by layer: its shape is all there is."""
+    return torch.device(device).type == "meta"
+
+
 def _init_stack(generator, cfg: ModelConfig, kind: str, count: int, dtype,
                 device):
     """``count`` blocks of ``kind``, each leaf stacked on a leading axis:
     allocated once as ``(count, ...)`` and filled block by block."""
     first = init_block(generator, cfg, kind, dtype, device)
     stacked = tree_map(lambda a: a.new_empty((count,) + a.shape), first)
+    if _shapes_only(device):
+        return stacked
     _set_layer(stacked, 0, first)
     del first
     for i in range(1, count):
@@ -317,7 +334,7 @@ def _embed_inputs(params, batch, cfg: ModelConfig, pos: int | None = None):
     if cfg.input_kind == "embeds":
         return batch["embeds"]
     tokens = batch["tokens"]
-    x = F.embedding(tokens, params["embed"])
+    x = F.embedding(tokens, gather_weights(params["embed"]))
     if cfg.family == "audio":
         b, s = tokens.shape
         p = (torch.arange(s, device=x.device) if pos is None
@@ -349,7 +366,7 @@ def _head(params, x, cfg: ModelConfig):
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return x @ head
+    return x @ gather_weights(head)
 
 
 def forward(params, batch, cfg: ModelConfig, remat: bool = False,
@@ -363,7 +380,7 @@ def forward(params, batch, cfg: ModelConfig, remat: bool = False,
     the MoE blocks' load-balance losses summed (fp32), zero without MoE.
     The batch holds ``tokens``, or ``embeds`` and ``positions3`` (M-RoPE),
     and ``audio_embeds`` for an encoder-decoder."""
-    x = _embed_inputs(params, batch, cfg)
+    x = hint(_embed_inputs(params, batch, cfg), batch_axes())
     b, s = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
@@ -393,7 +410,42 @@ def forward(params, batch, cfg: ModelConfig, remat: bool = False,
             aux_total = aux_total + torch.stack(auxs).sum()
     if last_only:
         x = x[:, -1:, :]
-    return _head(params, x, cfg), aux_total
+    logits = hint(_head(params, x, cfg), batch_axes(), None, "model")
+    return logits, aux_total
+
+
+def _sharded_lse_and_pick(logits32, labels):
+    """logsumexp over the vocabulary and the labels' logits, on the dry
+    run's DTensors with the vocabulary over ``model`` (as GSPMD partitions
+    them): each device reduces its slice of the vocabulary, then one max
+    and two sums go over ``model``.  DTensor would gather the vocabulary."""
+    from torch.distributed import _functional_collectives as funcol
+    dm = logits32.device_mesh
+    names = tuple(dm.mesh_dim_names)
+    vocab = logits32.shape[-1]
+    split = "model" in names and vocab % dm.shape[names.index("model")] == 0
+    mi = names.index("model") if split else None
+    bd = batch_axes()
+
+    def local(lg, lab):
+        if mi is None:
+            return (torch.logsumexp(lg, dim=-1),
+                    torch.gather(lg, -1, lab[..., None])[..., 0])
+        v_loc = lg.shape[-1]
+        lo = dm.get_local_rank("model") * v_loc
+        mx = funcol.all_reduce(lg.detach().amax(-1), "max", (dm, mi))
+        se = funcol.all_reduce(torch.exp(lg - mx[..., None]).sum(-1), "sum",
+                               (dm, mi))
+        rel = lab - lo
+        mine = (rel >= 0) & (rel < v_loc)
+        pk = torch.gather(lg, -1, torch.clamp(rel, 0, v_loc - 1)[..., None])
+        pk = funcol.all_reduce(torch.where(mine, pk[..., 0], 0.0), "sum",
+                               (dm, mi))
+        return mx + torch.log(se), pk
+
+    return shardwise(local, (logits32, labels),
+                     ((bd, None, "model" if split else None), (bd, None)),
+                     (labels.shape, labels.shape), ((bd,), (bd,)))
 
 
 def loss_fn(params, batch, cfg: ModelConfig, remat: bool = False):
@@ -403,9 +455,12 @@ def loss_fn(params, batch, cfg: ModelConfig, remat: bool = False):
     picked logit, and the mask's sum is kept at least 1."""
     logits, aux = forward(params, batch, cfg, remat=remat)
     labels = batch["labels"].long()
-    logits32 = logits.float()
-    lse = torch.logsumexp(logits32, dim=-1)
-    picked = torch.gather(logits32, -1, labels[..., None])[..., 0]
+    logits32 = hint(logits.float(), batch_axes(), None, "model")
+    if is_dtensor(logits32):
+        lse, picked = _sharded_lse_and_pick(logits32, labels)
+    else:
+        lse = torch.logsumexp(logits32, dim=-1)
+        picked = torch.gather(logits32, -1, labels[..., None])[..., 0]
     nll = lse - picked
     mask = batch.get("loss_mask")
     if mask is None:

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from ..kernels import ops
 from ..kernels.policy import use_kernels
 from ..kernels.ref import rglru_coefficients, rglru_ref
+from ..sharding.hints import batch_axes, hint, shardwise
 from .config import ModelConfig
 from .layers import _init
 from .ssm import _causal_conv
@@ -62,8 +63,11 @@ def apply_recurrent_block(p, x, cfg: ModelConfig, cache=None):
     sig = x @ p["in_x"]
     conv_state = cache["conv"] if cache else None
     sig, new_conv = _causal_conv(sig, p["conv_w"], p["conv_b"], conv_state)
-    r = torch.sigmoid(sig @ p["gate_r"])
-    i = torch.sigmoid(sig @ p["gate_i"])
+    # the gates' products pinned to the channels over model under the dry
+    # run's mesh (DTensor would hand them on as sequence shards)
+    bd = batch_axes()
+    r = torch.sigmoid(hint(sig @ p["gate_r"], bd, None, "model"))
+    i = torch.sigmoid(hint(sig @ p["gate_i"], bd, None, "model"))
     if cache is not None:
         y, new_h = rglru_decode_step(sig, r, i, p["lam"], cache["h"])
         new_cache = {"conv": new_conv, "h": new_h}
@@ -72,6 +76,10 @@ def apply_recurrent_block(p, x, cfg: ModelConfig, cache=None):
                 and sig.shape[2] % 128 == 0:
             y = ops.rglru(sig, r, i, p["lam"])
         else:
-            y = rglru_ref(sig, r, i, p["lam"])
+            # by shards under the dry run's mesh: batch over the batch
+            # axes, channels over model
+            y = shardwise(rglru_ref, (sig, r, i, p["lam"]),
+                          ((bd, None, "model"),) * 3 + (("model",),),
+                          (sig.shape,), ((bd, None, "model"),))
         new_cache = None
     return (y * gate) @ p["out"], new_cache

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from ..kernels import ops
 from ..kernels.policy import use_kernels
 from ..kernels.ref import ssd_scan_ref
+from ..sharding.hints import (batch_axes, hint, keep_layout, shardwise,
+                              split_heads)
 from .config import ModelConfig
 from .layers import _init, init_rmsnorm, rms_norm
 
@@ -81,7 +83,9 @@ def apply_mamba2(p, x, cfg: ModelConfig, cache=None):
     n = s_cfg.d_state
     b, s, _ = x.shape
 
-    zxbcdt = x @ p["in_proj"]
+    # pinned (and its gradient) under the dry run's mesh, where DTensor
+    # would otherwise hand the product's gradient over on sequence shards
+    zxbcdt = hint(x @ p["in_proj"], batch_axes(), None, "model")
     z, xin, Bc, Cc, dt = torch.split(zxbcdt, [din, din, n, n, nh], dim=-1)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
     conv_state = cache["conv"] if cache else None
@@ -92,7 +96,7 @@ def apply_mamba2(p, x, cfg: ModelConfig, cache=None):
 
     A = -torch.exp(p["A_log"])
     dt = F.softplus(dt.float() + p["dt_bias"])
-    xh = xin.reshape(b, s, nh, s_cfg.head_dim)
+    xh = split_heads(xin, nh).reshape(b, s, nh, s_cfg.head_dim)
 
     if cache is not None:
         y, new_state = ssd_decode_step(xh, dt, A, Bc, Cc, cache["state"])
@@ -101,9 +105,17 @@ def apply_mamba2(p, x, cfg: ModelConfig, cache=None):
         if use_kernels(x.device) and s % s_cfg.chunk == 0:
             y, _ = ops.ssd(xh, dt, A, Bc, Cc, chunk=s_cfg.chunk)
         else:
-            y, _ = ssd_scan_ref(xh, dt, A, Bc, Cc, s_cfg.chunk)
+            # by shards under the dry run's mesh: batch over the batch
+            # axes, heads over model
+            bd, tp = batch_axes(), "model"
+            y, _ = shardwise(
+                lambda *a: ssd_scan_ref(*a, s_cfg.chunk),
+                (xh, dt, A, Bc, Cc),
+                ((bd, None, tp, None), (bd, None, tp), (tp,), (bd,), (bd,)),
+                (xh.shape, (b, nh, s_cfg.head_dim, n)),
+                ((bd, None, tp, None), (bd, tp, None, None)))
         new_cache = None
     y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(b, s, din)
+    y = keep_layout(y.reshape(b, s, din))
     y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
     return y @ p["out_proj"], new_cache

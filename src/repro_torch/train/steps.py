@@ -12,8 +12,8 @@ batch through whole: ``tokens``, or ``embeds`` and ``positions3`` for
 embedding inputs, and ``audio_embeds`` for an encoder-decoder's prefill
 (its decode state carries ``enc_out``).
 
-The reference's sharding hints (``repro.sharding.hints``) have no meaning
-on one device and are left out.  Its ``build_graph_train_step`` and
+Under an active mesh each microbatch is pinned back to the batch axes
+(``repro/train/steps.py:45-52``).  The reference's ``build_graph_train_step`` and
 ``build_switch_step``, thin wrappers of ``Session.train_step`` and
 ``execute_switch``, are not ported: callers use ``repro_torch.api.Session``
 directly.
@@ -26,6 +26,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.model import decode_step, forward, loss_fn
 from ..optim.adamw import AdamWConfig, apply_updates
+from ..sharding.hints import active, batch_axes, hint, like
 from ..tree import tree_leaves, unflatten_like
 
 
@@ -43,8 +44,15 @@ def _split(batch: dict, n: int) -> list[dict]:
             return torch.chunk(v, n)
         return None
 
+    def pin(k, v):
+        # re-pin the batch sharding the cut loses (identity without a mesh)
+        bd = batch_axes()
+        if not bd or not torch.is_tensor(v):
+            return v
+        return hint(v, None, bd) if k == "positions3" else hint(v, bd)
+
     parts = {k: cut(k, v) for k, v in batch.items()}
-    return [{k: batch[k] if parts[k] is None else parts[k][j]
+    return [{k: pin(k, batch[k] if parts[k] is None else parts[k][j])
              for k in batch} for j in range(n)]
 
 
@@ -63,7 +71,8 @@ def accumulate_grads(params, batch, cfg: ModelConfig,
     acc, losses = None, []
     for mb in (_split(batch, n) if n > 1 else [batch]):
         loss, _ = loss_fn(params, mb, cfg, remat=remat)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = [like(g, p) for g, p in
+                 zip(torch.autograd.grad(loss, leaves), leaves)]
         losses.append(loss.detach())
         if acc is None:    # 0 + g is g
             acc = [g.float() for g in grads]
@@ -93,20 +102,28 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+def _serving():
+    """Inference mode; under the dry run's DTensor mesh no_grad (DTensor
+    does not run in inference mode)."""
+    a = active()
+    return torch.no_grad() if a is not None and a.device_mesh is not None \
+        else torch.inference_mode()
+
+
 def build_prefill_step(cfg: ModelConfig):
-    @torch.inference_mode()
     def prefill_step(params, batch):
         # the head on the last position only: what a server samples from
-        logits, _ = forward(params, batch, cfg, last_only=True)
-        return logits[:, -1, :]
+        with _serving():
+            logits, _ = forward(params, batch, cfg, last_only=True)
+            return logits[:, -1, :]
 
     return prefill_step
 
 
 def build_decode_step(cfg: ModelConfig):
-    @torch.inference_mode()
     def serve_step(params, state, batch):
-        logits, new_state = decode_step(params, state, batch, cfg)
-        return logits[:, -1, :], new_state
+        with _serving():
+            logits, new_state = decode_step(params, state, batch, cfg)
+            return logits[:, -1, :], new_state
 
     return serve_step

@@ -20,6 +20,13 @@ Phases, in the order given:
   dp2|tp2 strategy, against phase 5's run (which it runs first, as
   ``chip_smoke.py`` does), and phase 5's blocks under tp2 x pp2 as a
   4-rank pipeline on ``DistAsyncExecutor`` and ``DistExecutor``.
+* ``ep``: phase 10 (e) alone: one DeepSeek-V2 MoE layer at published
+  widths expert-parallel on 4 ranks sharing the card
+  (``repro_torch.launch.moe_ep``), against rank 0's single-process
+  dispatch and the dry run's all-reduce bytes for that layer.
+* ``dryrun``: phase 11: the dry-run child (rooflines, full dry runs, the
+  anchor's prediction) beside phase 6's Qwen2-1.5B run, which gives the
+  anchor's measured side.
 
 Each phase prints what it prints in ``chip_smoke.py`` and then one line
 ``<phase>: {json}``.  A phase that fails exits non-zero, as in
@@ -34,7 +41,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("attention", "ssd", "rglru", "train", "families", "dist")
+PHASES = ("attention", "ssd", "rglru", "train", "families", "dist", "ep",
+          "dryrun")
 
 
 def dist(torch, cs, fa, ref):
@@ -49,6 +57,38 @@ def dist(torch, cs, fa, ref):
         losses = ir_run["losses"][:cs.DIST_STEPS]
         del ir_run
         return cs.phase_dist(torch, fa, ref, ref_state, losses)
+
+
+def ep(torch, cs):
+    """Phase 10 (e) in a launch of its own."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.launch.roofline import moe_component
+    from repro_torch.runtime.harness import run_ranks
+    layer = moe_component(get_config(cs.EP_ARCH),
+                          LogicalMesh(("data", "model"), cs.EP_MESH),
+                          cs.EP_TOKENS, torch.float32)
+    procs = run_ranks("repro_torch.launch.moe_ep",
+                      cs.EP_MESH[0] * cs.EP_MESH[1], backend="gloo",
+                      device="cuda", timeout=cs.DIST_SWEEP_TIMEOUT,
+                      extra_args=["--arch", cs.EP_ARCH, "--tokens",
+                                  str(cs.EP_TOKENS), "--data",
+                                  str(cs.EP_MESH[0]), "--model",
+                                  str(cs.EP_MESH[1])])
+    e = cs.rank_reports(procs[:1], "MOE_EP_JSON")[0]
+    return {"e": cs.check_ep([{"e": e}], layer)}
+
+
+def dryrun(torch, cs, policy, kernels):
+    """Phase 11 with phase 6's first config as the anchor's measured side."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="phase11-") as d:
+        child = cs.DryRunChild(d, cs.gpu_name_from_smi())
+        arch, layers = cs.TRAIN_ARCHS[0]
+        train = {arch: cs.phase_train(torch, policy, kernels, arch, layers)}
+        out = cs.phase_production_dryrun(child, train)
+    out.pop("roofline")
+    return out
 
 
 def main(argv) -> int:
@@ -82,6 +122,9 @@ def main(argv) -> int:
             layers) for arch, layers in cs.TRAIN_ARCHS},
         "families": lambda: cs.phase_families(torch, policy, fa, ref),
         "dist": lambda: dist(torch, cs, fa, ref),
+        "ep": lambda: ep(torch, cs),
+        "dryrun": lambda: dryrun(torch, cs, policy,
+                                 {"flash": fa, "ssd": sk, "rglru": rk}),
     }
     for name in names:
         t0 = time.perf_counter()
@@ -94,6 +137,8 @@ def main(argv) -> int:
         elif name == "dist":
             b1, ranks = out
             out = {"ranks": ranks, "b1": b1}
+        elif name in ("ep", "dryrun"):
+            pass
         else:
             worst, timing = out
             out = {"max_abs_err": worst,
