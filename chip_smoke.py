@@ -55,7 +55,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    Llama under tp2 x pp2 with two microbatches (1f1b): B1 once per layer
    per microbatch, and the same agreement with the simulator.
 6. the production trainer (``repro_torch.launch.train``): full-width
-   Qwen2-1.5B cut to 14 of its 28 layers and Mamba2-370M to 24 of its 48,
+   Qwen2-1.5B cut to 14 of its 28 layers and Mamba2-370M to 12 of its 48,
    and RecurrentGemma-9B at full width cut to one (rec, rec, attn)
    superblock (``TRAIN_ARCHS``), each at batch 8, seq
    512, 2 microbatches, remat, AdamW fp32, TF32 off, and freed before the
@@ -114,21 +114,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    this path's shape against its plain version, its bound and SDPA.
 9. the rest of the model stack, each config at published widths, fp32,
    random weights from seed 0, batch 4, generating 32 tokens, freed before
-   the next: DeepSeek-V2 (3 of 60 layers: the dense layer 0 and two MoE
-   layers; MLA) and Grok-1 (2 of 64 MoE layers) on 512-token prompts,
+   the next: DeepSeek-V2 (2 of 60 layers: the dense layer 0 and one MoE
+   layer; MLA) and Grok-1 (1 of 64 MoE layers) on 512-token prompts,
    Qwen2-VL (2 of 80 layers; embedding inputs, a 16 x 16 image grid and
    text with their M-RoPE ids) on 512, whole Whisper large-v3 (32 encoder
    and 32 decoder layers over 1500 audio frames) on 384.  Prefill must
-   launch B1 once per decoder self-attention layer (3, 2, 2, 32) and
+   launch B1 once per decoder self-attention layer (2, 1, 2, 32) and
    decode none; the teacher-forced decode must agree with prefill (atol
-   2e-3, rtol 1e-3, same argmax), for MoE on a copy under ``moe.exact``
-   with the same weights, since at capacity factor 1.25 a 4-token decode
-   step keeps one assignment an expert; prefill through the kernels must
-   agree with the plain versions on the prompts none of whose tokens is
-   routed differently in any MoE layer, and at most 1% of the tokens may
-   be.  Prefill ms, decode tok/s, peak memory and the device's busy share,
-   and B1 at Grok-1's, Qwen2-VL's and Whisper's prefill shapes against its
-   plain version, its bound and SDPA.
+   2e-3, rtol 1e-3, same argmax).  MoE is served from a copy under
+   ``moe.exact`` with the same weights, since at capacity factor 1.25 a
+   4-token decode step keeps one assignment an expert; prefill of the
+   published config through the kernels must agree with the plain
+   versions on the prompts none of whose tokens is routed differently in
+   any MoE layer, and at most 1% of the tokens may be.  Prefill ms,
+   decode tok/s, peak memory and the device's busy share (the published
+   config's prefill and decode step), and B1 at Grok-1's, Qwen2-VL's and
+   Whisper's prefill shapes against its plain version, its bound and SDPA.
 10. ranks sharing the card (``torch.distributed`` over gloo, every
    payload staged through host memory; NCCL refuses two ranks on one GPU
    and runs only where there is a GPU per rank).  (a) The rank selftest
@@ -187,7 +188,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    equal to the dry run's all-reduce bytes for that layer and mesh; the
    times and each rank's card peak.  Then B1 at the three rank shapes
    against its plain version, its bound and SDPA.
-11. production dry run (after phase 9, before phase 10): child processes
+11. production dry run (after phase 12, before phase 10): child processes
    started after phase 5 (once its reference child has ended) run on the
    host, with fake tensors and a fake
    process group (nothing allocated, no card touched): (a) the roofline of
@@ -197,10 +198,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    anchor: phase 6's Qwen2-1.5B step on a 1 x 1 mesh, whose predicted peak
    must lie within 20% of phase 6's measured peak of step 2 through the
    plain versions, and the MFU its FLOPs and that measured step give, and
-   phase 10 (e)'s layer's collective bytes.
-12. the training line, the elastic line, the pipeline line, the families
-   line, the ranks line, the production line, the kernels line, then the
-   card line, then the result line.
+   phase 10 (e)'s layer's collective bytes; the same 1 x 1 dry run of each
+   of phase 12's configs against its measured plain step-2 peak, held to
+   20% for Qwen2-VL and Whisper and recorded for the MoE families (the dry
+   run's DTensor MoE stands in for the capacity dispatch).
+12. (after phase 9, before phase 11) phase 9's families trained through
+   ``repro_torch.launch.train`` at published widths (``FAMILY_TRAIN``):
+   DeepSeek-V2 cut to its dense layer 0 and one MoE layer of 64 of its
+   160 routed experts (``--layers 2 --experts 64``), Grok-1 to one layer
+   of 4 of its 8 experts, Qwen2-VL to 2 layers, Whisper large-v3 whole at
+   384 decoder positions; phase 6's batch 8, 2 microbatches, remat, AdamW
+   fp32, each freed before the next.  (a) ``launch.train.main`` for three
+   steps: B1 launched decoder self-attention layers x microbatches x 2 a
+   step (8, 4, 8, 128; Whisper's encoder and cross-attention take the
+   plain path), losses finite and changing, gradient norms finite; the
+   peak, step ms and tok/s.  (b) Two steps from one init through the
+   kernels and through the plain versions, phase 6's limits; with MoE each
+   call's routing recorded in both runs, at most 1% of a step's tokens
+   routed differently, and from a step with such a token on the loss
+   within FLIP_LOSS_RTOL and gradients, m and v within FLIP_NORMWISE.  (c)
+   On the learnable batch (in the config's input kind) the loss falls
+   within phase 6's ten steps, stopping once it has; the second step
+   profiled for the device's busy share.  (d) B1's plain-recompute
+   backward per call at the config's shape (MLA's q/k 192 and v 128).
+13. the training line, the elastic line, the pipeline line, the families
+   line (phases 9 and 12), the ranks line, the production line, the
+   kernels line, then the card line, then the result line.
 
 Needs a visible CUDA device and the repository's ``src/`` beside it; it
 imports nothing of JAX and nothing of the JAX package.
@@ -210,7 +233,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -251,19 +273,18 @@ GRAD_NORM_RTOL = 2e-4
 #: phase 8: full-width Llama-32B blocks under tp2 x pp2 (one layer a
 #: stage), 4 microbatches of 1 x 512 so that 1F1B has a steady state
 PP_LAYERS, PP_BATCH, PP_MICRO = 2, 4, 4
-#: phase 8's runs in order: each executor twice, the serialized baseline
-#: and the async path in turns (the first run pays the process's first
-#: use of each kernel), then one async run under ``torch.profiler`` and
-#: ``torch.cuda.set_sync_debug_mode("warn")``
-PP_RUNS = ("torch", "serialized", "async", "async", "serialized", "torch",
-           "profiled")
+#: phase 8's runs in order: each executor once (the first run pays the
+#: process's first use of each kernel), then one async run under
+#: ``torch.profiler`` and ``torch.cuda.set_sync_debug_mode("warn")``
+PP_RUNS = ("torch", "serialized", "async", "profiled")
 #: phase 6: the production trainer (``launch/train.py``), each config at
 #: published widths: (arch, layers or None for full depth).  RecurrentGemma
 #: keeps one (rec, rec, attn) superblock: its full 10.4 B parameters need
 #: ~167 GB of fp32 params, grads, m and v, more than one 80 GB card.
-#: Qwen2-1.5B keeps 14 of its 28 layers and Mamba2-370M 24 of its 48, to
-#: keep the whole script inside its 1200 s limit
-TRAIN_ARCHS = (("qwen2-1.5b", 14), ("mamba2-370m", 24),
+#: Qwen2-1.5B keeps 14 of its 28 layers and Mamba2-370M 12 of its 48, to
+#: keep the whole script inside its 1200 s limit (Mamba2's step is bound
+#: by the host's launches, so its depth is the host time it costs)
+TRAIN_ARCHS = (("qwen2-1.5b", 14), ("mamba2-370m", 12),
                ("recurrentgemma-9b", 3))
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 3
 #: kernels vs plain versions over two steps from one init: the losses'
@@ -300,15 +321,34 @@ ELASTIC_TRACE = [(0, (0, 1, 2, 3)), (1, (0, 1)), (2, (0, 1, 2, 3))]
 #: phase 9: the families of the port's last model slice, each at published
 #: widths, fp32, random weights from seed 0, batch 4: (arch, layers or None
 #: for full depth, prompt length).  DeepSeek-V2 keeps its dense layer 0 and
-#: two MoE layers (37.3 GB of fp32 weights), Grok-1 two MoE layers (32.9
-#: GB), Qwen2-VL two layers; Whisper runs whole, its prompt inside the 448
-#: positions of its decoder
-FAMILIES = (("deepseek-v2-236b", 3, 512), ("grok-1-314b", 2, 512),
+#: one MoE layer, Grok-1 one MoE layer (phase 12's depths: a second MoE
+#: layer repeats the first's code path for ~8 s of cache fill), Qwen2-VL
+#: two layers; Whisper runs whole, its prompt inside the 448 positions of
+#: its decoder
+FAMILIES = (("deepseek-v2-236b", 2, 512), ("grok-1-314b", 1, 512),
             ("qwen2-vl-72b", 2, 512), ("whisper-large-v3", None, 384))
 #: the largest share of prefill tokens whose MoE routing (an expert of the
 #: top-k, or whether capacity keeps it) may differ between the kernels and
 #: the plain versions: they differ by ~1e-6, which flips a near-tie
 ROUTING_FLIP_MAX = 0.01
+#: phase 12: phase 9's families trained through ``launch.train.main`` at
+#: published widths (phase 6's batch, microbatches, remat, AdamW fp32):
+#: (arch, layers or None for full depth, routed experts or None for the
+#: published count, sequence).  fp32 params, gradients, m and v take 16 B
+#: a parameter, so one MoE layer at its published expert count does not
+#: fit one 80 GB card for training: DeepSeek-V2 keeps its dense layer 0 and
+#: one MoE layer of 64 of its 160 routed experts, Grok-1 one layer of 4 of
+#: its 8; top-k, d_expert and the shared experts are kept.  Whisper runs
+#: whole at phase 9's 384 positions
+FAMILY_TRAIN = (("deepseek-v2-236b", 2, 64, 512), ("grok-1-314b", 1, 4, 512),
+                ("qwen2-vl-72b", 2, None, 512),
+                ("whisper-large-v3", None, None, 384))
+#: kernels vs plain versions over two steps where tokens of a step route
+#: differently (at most ROUTING_FLIP_MAX of them): a flipped token moves to
+#: another expert wholesale, so the loss and the normwise differences of
+#: the gradients, m and v (the routed experts' stacked weights the most)
+#: are held to these limits in place of phase 6's, from that step on
+FLIP_LOSS_RTOL, FLIP_NORMWISE = 1e-3, 1e-1
 #: phase 10: ranks sharing the card over gloo: the world sizes of the rank
 #: selftest and its case groups at each, then phase 5's program on
 #: DIST_RANKS ranks for DIST_STEPS steps under (b) dp2 x tp2 and (c) the
@@ -716,19 +756,26 @@ def phase_ssd(torch, sk, ref, gen):
     return worst, timing
 
 
-def cuda_kernels_per_call(torch, fn, calls=3) -> float:
-    """CUDA kernels that ``torch.profiler`` sees run, per call of fn."""
+def cuda_kernels_per_call(torch, fn, calls=3, windows=3) -> float:
+    """CUDA kernels that ``torch.profiler`` sees run, per call of fn: the
+    most over ``windows`` profiled windows of ``calls`` calls.  The
+    profiler can lose a kernel's record (a window once read 2 kernels in 3
+    calls of the one-kernel RG-LRU wrapper on the H100) and never adds
+    one, so the most is the count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / calls
+    most = 0.0
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA) / calls)
+    return most
 
 
 def phase_rglru(torch, rk, ref, gen):
@@ -1332,12 +1379,39 @@ def learnable_batch(torch, rng, batch, seq):
                                        .astype(np.int32)).to("cuda")}
 
 
-def train_config(arch, layers):
+def learnable_inputs(torch, cfg, rng, batch, seq):
+    """:func:`learnable_batch` in the config's input kind, as
+    ``launch.train.make_batch`` turns tokens into inputs: embeddings
+    one_hot(token % d_model) * 0.02 with the positions on all three M-RoPE
+    streams, or N(0, 0.02^2) audio frames from ``rng`` beside the
+    tokens."""
+    from repro_torch.models.model import token_embeds
+    out = learnable_batch(torch, rng, batch, seq)
+    if cfg.input_kind == "embeds":
+        out["embeds"] = token_embeds(out.pop("tokens"), cfg.d_model)
+        out["positions3"] = torch.arange(
+            seq, dtype=torch.int32, device="cuda").expand(3, batch, seq)
+    elif cfg.input_kind == "audio":
+        out["audio_embeds"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.encdec.n_frames, cfg.d_model)) * 0.02) \
+            .float().to("cuda")
+    return out
+
+
+def train_config(arch, layers, experts=None):
+    """The config at published widths, its depth cut to ``layers`` and its
+    routed experts to ``experts`` where given (``launch.train``'s
+    ``--layers`` and ``--experts``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=experts))
+    return cfg
 
 
 def train_launches_per_step(cfg) -> dict[str, int]:
@@ -1348,167 +1422,326 @@ def train_launches_per_step(cfg) -> dict[str, int]:
             for k, n in expected_prefill_launches(cfg).items()}
 
 
+def normwise(a, b, chunk=1 << 26):
+    """||a - b|| / ||b|| (the largest |a| where b is zero), in float64 on
+    the card a chunk of elements at a time: a published expert stack in
+    float64 would take gigabytes.  Tensors on the host are copied there a
+    chunk at a time."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for i in range(0, b.numel(), chunk):
+        x = a[i:i + chunk].to("cuda").double()
+        y = b[i:i + chunk].to("cuda").double()
+        num += (x - y).square().sum().item()
+        den += y.square().sum().item()
+    return math.sqrt(num / den) if den else a.abs().max().item()
+
+
 def worst_normwise(pairs, skip=frozenset()):
-    """The largest ||a - b|| / ||b|| over (name, a, b), names in ``skip``
-    left out -> (error, name).  In float64 on the card: tensors on the host
-    are copied there first."""
+    """The largest :func:`normwise` over (name, a, b), names in ``skip``
+    left out -> (error, name)."""
     worst = (0.0, "")
     for name, a, b in pairs:
-        if name in skip:
-            continue
-        a, b = a.to("cuda"), b.to("cuda")
-        norm = b.double().norm().item()
-        err = (a.double() - b.double()).norm().item() / norm if norm else \
-            a.abs().max().item()
-        worst = max(worst, (err, name))
+        if name not in skip:
+            worst = max(worst, (normwise(a, b), name))
     return worst
 
 
-def train_kernels_vs_plain(torch, policy, cfg, kernels, per_step):
+def routing_flips(kern, plain, micro):
+    """The tokens of one step routed differently in two runs: ``kern`` and
+    ``plain`` are the step's ``moe.routing_log``s, (top_e, keep) a call,
+    the calls of each microbatch (forward, then the remat recompute)
+    consecutive; a token counts once however many of its calls differ."""
+    if len(kern) != len(plain) or len(kern) % micro:
+        fail(f"routing logs of {len(kern)} and {len(plain)} MoE calls for "
+             f"{micro} microbatches")
+    per = len(kern) // micro
+    flips = 0
+    for j in range(micro):
+        hit = None
+        for (ek, kk), (ep, kp) in zip(kern[j * per:(j + 1) * per],
+                                      plain[j * per:(j + 1) * per]):
+            d = (ek != ep).any(-1) | (kk != kp).any(-1)
+            hit = d if hit is None else hit | d
+        flips += int(hit.sum()) if hit is not None else 0
+    return flips
+
+
+class HostStage:
+    """A float32 host buffer for one run's state, page-locked
+    (``cudaHostRegister``) where CUDA allows it, so that copies to
+    and from the card run at the link's rate; made once a phase and reused
+    from config to config, since faulting in tens of GB of fresh host
+    memory costs more than the copies.  :meth:`close` unlocks and frees
+    it."""
+
+    def __init__(self, torch, numel):
+        t0 = time.perf_counter()
+        self.torch = torch
+        self.buf = torch.empty(numel, dtype=torch.float32)
+        # fault every page in first, one element a 4 KiB page, on the
+        # host's threads: registering untouched memory faults it in page
+        # by page on one thread
+        self.buf[::1024].zero_()
+        try:
+            self.pinned = int(torch.cuda.cudart().cudaHostRegister(
+                self.buf.data_ptr(), numel * 4, 0)) == 0
+        except AttributeError:      # a torch without the binding
+            self.pinned = False
+        print(f"  host stage: {numel * 4 / 1e9:.1f} GB, "
+              f"{'page-locked' if self.pinned else 'pageable'}, made in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    def put(self, tensors) -> list:
+        """Copy ``tensors`` (float32, on the card) in -> each one's flat
+        view in the buffer."""
+        need = sum(t.numel() for t in tensors)
+        if need > self.buf.numel():
+            fail(f"host stage of {self.buf.numel()} elements, {need} to put")
+        views, pos = [], 0
+        for t in tensors:
+            view = self.buf[pos:pos + t.numel()]
+            view.copy_(t.detach().reshape(-1), non_blocking=self.pinned)
+            views.append(view)
+            pos += t.numel()
+        self.torch.cuda.synchronize()
+        return views
+
+    def close(self):
+        if self.pinned:
+            self.torch.cuda.cudart().cudaHostUnregister(self.buf.data_ptr())
+        self.buf, self.pinned = None, False
+
+
+def n_params(cfg) -> int:
+    """A config's parameters, counted on the meta device."""
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() for t in tree_leaves(
+        init_params(cfg, device="meta", generator=None)))
+
+
+def train_kernels_vs_plain(torch, policy, cfg, kernels, per_step, stage,
+                           seq=TRAIN_SEQ):
     """Two steps from one seeded init (default AdamW, fp32, TF32 off), once
     through the kernels and once through the plain versions on the card:
-    the losses, every gradient at step 1, every parameter (those that start
-    at zero apart) and all of AdamW's m and v after step 2, each against
-    its limit.  The kernels' results wait on the host while the plain run
-    holds the card."""
+    the losses, every gradient at step 1 (both runs' from the same init,
+    side by side on the card), every parameter (those that start at zero
+    apart) and all of AdamW's m and v after step 2 (the kernels' run staged
+    on the host while the plain run holds the card), each against its
+    limit.  With MoE, each step's routing in both runs: where tokens of a
+    step route differently (at most ROUTING_FLIP_MAX of them), that step
+    and the next are held to FLIP_LOSS_RTOL and FLIP_NORMWISE in place of
+    phase 6's limits.  ``stage``: the :class:`HostStage` for the kernels'
+    state."""
+    import numpy as np
+
     from repro_torch.data.pipeline import CorpusConfig, SyntheticCorpus
     from repro_torch.launch.train import make_batch
+    from repro_torch.models import moe
     from repro_torch.models.model import init_params
     from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                          init_opt_state)
     from repro_torch.train.steps import accumulate_grads, build_train_step
     from repro_torch.tree import named_leaves
 
-    def state(opt):
-        return [(f"{s}{n}", t) for s in ("m", "v")
-                for n, t in named_leaves(opt[s])]
-
-    def run(pol, host=None):
+    def routed(pol, fn):
+        """fn() under kernel policy ``pol`` -> (its result, each MoE call's
+        routing in order)."""
         policy.set_policy(pol)
+        moe.routing_log = [] if cfg.moe else None
         try:
-            params = init_params(cfg, device="cuda", generator=torch
-                                 .Generator(device="cuda").manual_seed(0))
-            zero = {n for n, t in named_leaves(params) if not t.any()}
-            opt = init_opt_state(params)
-            corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab,
-                                                  max_len=TRAIN_SEQ))
-            batches = [make_batch(corpus, cfg, TRAIN_BATCH, TRAIN_SEQ,
-                                  None, "cuda") for _ in range(2)]
-            before = {k: m.launches for k, m in kernels.items()}
-            loss1, grads = accumulate_grads(params, batches[0], cfg,
-                                            TRAIN_MICRO)
-            g = [(n, t) for n, t in named_leaves(grads)]
-            out = {"loss": [loss1.item()]}
-            if host is None:
-                # a host copy: apply_updates takes the grads as scratch
-                out["grads"] = [(n, t.to("cpu", copy=True)) for n, t in g]
-            else:
-                out["grad_err"] = worst_normwise(
-                    (n, host["grads"][i][1].to("cuda"), t)
-                    for i, (n, t) in enumerate(g))
-                del host["grads"]
-            del g
-            apply_updates(params, grads, opt, AdamWConfig())
-            del grads
-            step = build_train_step(cfg, AdamWConfig(), TRAIN_MICRO)
-            # step 2 alone: its card peak and time (phase 11's anchor)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t_step = time.perf_counter()
-            params, opt, met = step(params, opt, batches[1])
-            torch.cuda.synchronize()
-            out["step2_s"] = time.perf_counter() - t_step
-            out["step2_peak_bytes"] = torch.cuda.max_memory_allocated()
-            out["loss"].append(met["loss"].item())
-            out["launches"] = {k: m.launches - before[k]
-                               for k, m in kernels.items()}
-            if host is None:
-                out["params"] = [(n, t.detach().to("cpu", copy=True))
-                                 for n, t in named_leaves(params)]
-                out["state"] = [(n, t.to("cpu", copy=True))
-                                for n, t in state(opt)]
-            else:
-                leaves = list(named_leaves(params))
-                out["param_err"] = worst_normwise(
-                    ((n, host["params"][i][1].to("cuda"), t.detach())
-                     for i, (n, t) in enumerate(leaves)), skip=zero)
-                out["zero_lr"] = max((
-                    ((host["params"][i][1].to("cuda") - t).abs().max().item()
-                     / met["lr"].item(), n)
-                    for i, (n, t) in enumerate(leaves) if n in zero),
-                    default=(0.0, "none"))
-                del leaves
-                out["state_err"] = worst_normwise(
-                    (n, host["state"][i][1].to("cuda"), t)
-                    for i, (n, t) in enumerate(state(opt)))
-            del params, opt, batches
-            torch.cuda.empty_cache()
-            return out
+            return fn(), moe.routing_log or []
         finally:
+            moe.routing_log = None
             policy.set_policy("auto")
 
-    k = run("auto")
-    p = run("ref", host=k)
+    def init():
+        return init_params(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, max_len=seq))
+    rng = np.random.default_rng(0)
+    batches = [make_batch(corpus, cfg, TRAIN_BATCH, seq, rng, "cuda")
+               for _ in range(2)]
+    step = build_train_step(cfg, AdamWConfig(), TRAIN_MICRO)
+
+    def grads(pol, params):
+        return routed(pol, lambda: accumulate_grads(
+            params, batches[0], cfg, TRAIN_MICRO))
+
+    def step2(pol, params, opt):
+        """Step 2 alone: its result, routing, card peak and time (phase
+        11's anchors)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (params, opt, met), route = routed(
+            pol, lambda: step(params, opt, batches[1]))
+        torch.cuda.synchronize()
+        return (params, opt, met, route, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated())
+
+    def state(params, opt):
+        return list(named_leaves(params)) + [
+            (f"{s}{n}", t) for s in ("m", "v")
+            for n, t in named_leaves(opt[s])]
+
+    seconds, mark = {}, [time.perf_counter()]
+
+    def part(name):
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - mark[0]
+        mark[0] = time.perf_counter()
+
+    k, p = {}, {}
+    before = {n: m.launches for n, m in kernels.items()}
+    params = init()
+    zero = {n for n, t in named_leaves(params) if not t.any()}
+    (loss, gk), route_k1 = grads("auto", params)
+    k["loss"] = [loss.item()]
+    k["launches"] = {n: m.launches - before[n] for n, m in kernels.items()}
+    part("kernels: step-1 gradients")
+    (loss, gp), route_p1 = grads("ref", params)
+    p["loss"] = [loss.item()]
+    part("plain: step-1 gradients")
+    grad_err = worst_normwise(
+        (n, a, b) for (n, a), (_, b) in zip(named_leaves(gk),
+                                             named_leaves(gp)))
+    del gp
+    part("compare gradients")
+    opt = init_opt_state(params)
+    apply_updates(params, gk, opt, AdamWConfig())
+    del gk
+    before = {n: m.launches for n, m in kernels.items()}
+    params, opt, met, route_k2, k["step2_s"], k["step2_peak_bytes"] = \
+        step2("auto", params, opt)
+    k["loss"].append(met["loss"].item())
+    k["launches"] = {n: k["launches"][n] + m.launches - before[n]
+                     for n, m in kernels.items()}
+    part("kernels: AdamW, step 2")
+    views = stage.put([t for _, t in state(params, opt)])
+    del params, opt, met
+    torch.cuda.empty_cache()
+    part("stage the kernels' state on the host")
+    # the plain run from the same init
+    before = {n: m.launches for n, m in kernels.items()}
+    params = init()
+    (loss, gp), _ = grads("ref", params)
+    opt = init_opt_state(params)
+    apply_updates(params, gp, opt, AdamWConfig())
+    del gp
+    params, opt, met, route_p2, p["step2_s"], p["step2_peak_bytes"] = \
+        step2("ref", params, opt)
+    p["loss"].append(met["loss"].item())
+    p["launches"] = {n: m.launches - before[n] for n, m in kernels.items()}
+    part("plain: init, step-1 gradients, AdamW, step 2")
+    leaves = state(params, opt)
+    n_par = len(list(named_leaves(params)))
+    param_err = worst_normwise(
+        ((n, views[i], t) for i, (n, t) in enumerate(leaves[:n_par])),
+        skip=zero)
+    zero_lr = max((
+        ((views[i].to("cuda") - t.reshape(-1)).abs().max().item()
+         / met["lr"].item(), n)
+        for i, (n, t) in enumerate(leaves[:n_par]) if n in zero),
+        default=(0.0, "none"))
+    state_err = worst_normwise(
+        (n, views[n_par + i], t) for i, (n, t) in enumerate(leaves[n_par:]))
+    del params, opt, leaves, views
+    torch.cuda.empty_cache()
+    part("compare the state")
+    flips = [routing_flips(route_k1, route_p1, TRAIN_MICRO),
+             routing_flips(route_k2, route_p2, TRAIN_MICRO)]
+
     want = {kk: 2 * v for kk, v in per_step.items()}
     if k["launches"] != want or any(p["launches"].values()):
         fail(f"{cfg.name}: launches over two steps {k['launches']} through "
              f"the kernels (expected {want}), {p['launches']} through the "
              f"plain versions (expected none)")
-    lerr = max(abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"]))
-    (gerr, gname), (perr, pname) = p["grad_err"], p["param_err"]
-    (serr, sname), (zlr, zname) = p["state_err"], p["zero_lr"]
-    ok = (lerr <= TRAIN_LOSS_RTOL and gerr <= TRAIN_GRAD_NORMWISE
-          and perr <= TRAIN_PARAM_NORMWISE and serr <= TRAIN_STATE_NORMWISE)
+    tokens = TRAIN_BATCH * seq
+    if max(flips) > ROUTING_FLIP_MAX * tokens:
+        fail(f"{cfg.name}: {flips} tokens a step routed differently through "
+             f"the kernels, more than {ROUTING_FLIP_MAX:.0%} of {tokens}")
+    # phase 6's limits up to the first step with a flip, the MoE limits
+    # from there on
+    lims = [(TRAIN_LOSS_RTOL, TRAIN_GRAD_NORMWISE, TRAIN_STATE_NORMWISE)
+            if not any(flips[:i + 1]) else
+            (FLIP_LOSS_RTOL, FLIP_NORMWISE, FLIP_NORMWISE) for i in range(2)]
+    lerr = [abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])]
+    (gerr, gname), (perr, pname) = grad_err, param_err
+    (serr, sname), (zlr, zname) = state_err, zero_lr
+    ok = (all(e <= lim[0] for e, lim in zip(lerr, lims))
+          and gerr <= lims[0][1] and perr <= TRAIN_PARAM_NORMWISE
+          and serr <= lims[1][2])
     print(f"  kernels vs plain versions, two steps from seed 0: losses "
-          f"{k['loss']} vs {p['loss']} (worst rel {lerr:.2e}, limit "
-          f"{TRAIN_LOSS_RTOL:.0e}); step-1 gradients worst normwise "
-          f"{gerr:.2e} ({gname}; limit {TRAIN_GRAD_NORMWISE:.0e}); after "
-          f"step 2, params worst normwise {perr:.2e} ({pname}; limit "
+          f"{k['loss']} vs {p['loss']} (rel {lerr[0]:.2e}, {lerr[1]:.2e}; "
+          f"limits {lims[0][0]:.0e}, {lims[1][0]:.0e}); step-1 gradients "
+          f"worst normwise {gerr:.2e} ({gname}; limit {lims[0][1]:.0e}); "
+          f"after step 2, params worst normwise {perr:.2e} ({pname}; limit "
           f"{TRAIN_PARAM_NORMWISE:.0e}; the leaves that start at zero are "
           f"held by m and v), m and v worst normwise {serr:.2e} ({sname}; "
-          f"limit {TRAIN_STATE_NORMWISE:.0e}); the zero-start leaves' "
-          f"largest element difference {zlr:.3g} x step 2's lr ({zname}): "
-          f"{'ok' if ok else 'FAIL'}")
+          f"limit {lims[1][2]:.0e}); the zero-start leaves' largest element "
+          f"difference {zlr:.3g} x step 2's lr ({zname})"
+          + (f"; MoE routing: {flips} of {tokens} tokens a step routed "
+             f"differently (at most {ROUTING_FLIP_MAX:.0%})"
+             if cfg.moe else "") + f": {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{cfg.name}: training through the kernels disagrees with the "
              f"plain versions")
     print(f"  step 2 alone: {k['step2_s'] * 1e3:.1f} ms through the kernels, "
           f"{p['step2_s'] * 1e3:.1f} ms through the plain versions; card "
           f"peak {k['step2_peak_bytes'] / 2**30:.3f} / "
-          f"{p['step2_peak_bytes'] / 2**30:.3f} GiB")
+          f"{p['step2_peak_bytes'] / 2**30:.3f} GiB; the kernels' state "
+          f"staged in {'page-locked' if stage.pinned else 'pageable'} host "
+          f"memory; "
+          f"seconds: " + ", ".join(f"{n} {v:.1f}" for n, v in
+                                   seconds.items()))
     return {"step2_s": {"kernels": k["step2_s"], "plain": p["step2_s"]},
             "step2_peak_bytes": {"kernels": k["step2_peak_bytes"],
                                  "plain": p["step2_peak_bytes"]},
-            "loss_rel": lerr, "grad_normwise": gerr, "grad_worst": gname,
+            "loss_rel": max(lerr), "loss_rel_steps": lerr,
+            "grad_normwise": gerr, "grad_worst": gname,
             "param_normwise": perr, "param_worst": pname,
             "state_normwise": serr, "state_worst": sname,
-            "zero_start_max_lr": zlr, "zero_start_worst": zname}
+            "zero_start_max_lr": zlr, "zero_start_worst": zname,
+            "routing_flips": flips if cfg.moe else None,
+            "staged_pinned": stage.pinned, "seconds": seconds,
+            "limits": {"loss": [lim[0] for lim in lims],
+                       "grad": lims[0][1], "param": TRAIN_PARAM_NORMWISE,
+                       "state": lims[1][2]}}
 
 
-def plain_backward_inputs(torch, kind, cfg):
-    """The inputs one microbatch (4 x 512) gives kernel ``kind`` in the
+def plain_backward_inputs(torch, kind, cfg, seq=TRAIN_SEQ):
+    """The inputs one microbatch (4 x ``seq``) gives kernel ``kind`` in the
     model, as leaves that need a gradient, with the Function to call and
-    a gradient for each output."""
+    a gradient for each output.  MLA's q and k take its nope + rope head
+    dim, v its own."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rk
     from repro_torch.kernels import ssd_scan as sk
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(3)
-    b, s = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ
+    b, s = TRAIN_BATCH // TRAIN_MICRO, seq
 
     def leaf(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device="cuda") * scale) \
             .requires_grad_()
     if kind == "flash":
         h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        dv = d
+        if cfg.mla:
+            d = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+            dv = cfg.mla.v_head_dim
         window = cfg.hybrid.window if cfg.hybrid else None
-        leaves = [leaf(b, s, n, d).transpose(1, 2) for n in (h, kh, kh)]
+        leaves = [leaf(b, s, n, e).transpose(1, 2)
+                  for n, e in ((h, d), (kh, d), (kh, dv))]
         leaves = [t.detach().requires_grad_() for t in leaves]
 
         def call(q, k, v):
             return fa.flash_attention_with_grad(q, k, v, causal=True,
                                                 window=window)
-        outs = [(b, h, s, d)]
+        outs = [(b, h, s, dv)]
     elif kind == "ssd":
         sc = cfg.ssm
         nh, n = sc.n_heads(cfg.d_model), sc.d_state
@@ -1533,13 +1766,13 @@ def plain_backward_inputs(torch, kind, cfg):
     return call, leaves, seeds
 
 
-def plain_backward_ms(torch, kind, cfg, calls=5):
+def plain_backward_ms(torch, kind, cfg, calls=5, seq=TRAIN_SEQ):
     """One kernel call's backward in the training path -- the plain version
     recomputed from the saved inputs and differentiated -- as device time
     (``torch.profiler``, the mean of ``calls`` backward calls of one graph)
     and as issued from Python one by one (CUDA events), in ms."""
     from torch.profiler import ProfilerActivity, profile
-    call, leaves, seeds = plain_backward_inputs(torch, kind, cfg)
+    call, leaves, seeds = plain_backward_inputs(torch, kind, cfg, seq)
     out = call(*leaves)
 
     def back():
@@ -1611,10 +1844,33 @@ def profile_device(torch, prof, wall_ms):
     return busy, plain, busy / wall_ms
 
 
-def phase_train(torch, policy, kernels, arch, layers):
+def training_stage(torch, archs=TRAIN_ARCHS, families=FAMILY_TRAIN):
+    """One :class:`HostStage` for the configs of phase 6 (``archs``) and
+    phase 12 (``families``), sized for the largest one's parameters, AdamW
+    m and v: page-locking it took ~20 s for phase 12's 37 GB, so a phase
+    makes one for all its configs.  (Kept from phase 6 to 12 it would hold
+    those GB through phases 7-9's host copies.)"""
+    cfgs = [train_config(arch, layers) for arch, layers in archs] + [
+        train_config(arch, layers, experts)
+        for arch, layers, experts, _ in families]
+    return HostStage(torch, max(3 * n_params(cfg) for cfg in cfgs))
+
+
+def phase_train_all(torch, policy, kernels, stage, archs=TRAIN_ARCHS):
+    """Phase 6: each config of ``archs`` in turn, the kernels' state of
+    each staged in ``stage``."""
+    t_phase = time.perf_counter()
+    out = {arch: phase_train(torch, policy, kernels, arch, layers, stage)
+           for arch, layers in archs}
+    print(f"  phase 6: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_train(torch, policy, kernels, arch, layers, stage):
     """The production trainer on the card: ``launch.train.main`` for
-    ``TRAIN_STEPS`` steps, kernels against plain versions over two steps,
-    the learning check, and where a step's time goes."""
+    ``TRAIN_STEPS`` steps, kernels against plain versions over two steps
+    (the kernels' state staged in ``stage``, a :class:`HostStage`), the
+    learning check, and where a step's time goes."""
     import gc
 
     import numpy as np
@@ -1662,7 +1918,8 @@ def phase_train(torch, policy, kernels, arch, layers):
     gc.collect()
     torch.cuda.empty_cache()
 
-    agree = train_kernels_vs_plain(torch, policy, cfg, kernels, per_step)
+    agree = train_kernels_vs_plain(torch, policy, cfg, kernels, per_step,
+                                   stage)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2387,14 +2644,11 @@ def phase_async(torch, fa, ref):
                      or "none"))
         runs.append(rec)
 
-    def loop_median(kind):
-        return statistics.median(r["loop_s"] for r in runs
-                                 if r["executor"] == kind)
-    overlap = 1 - loop_median("async") / loop_median("serialized")
+    loop = {r["executor"]: r["loop_s"] for r in runs}
+    overlap = 1 - loop["async"] / loop["serialized"]
     print(f"  overlap fraction of the dispatch loop 1 - async / serialized "
-          f"(medians of the unprofiled runs) = 1 - "
-          f"{loop_median('async'):.3f} / {loop_median('serialized'):.3f} = "
-          f"{overlap:.4f}")
+          f"(unprofiled runs) = 1 - {loop['async']:.3f} / "
+          f"{loop['serialized']:.3f} = {overlap:.4f}")
     del states, holder, want
     torch.cuda.empty_cache()
 
@@ -2446,16 +2700,25 @@ def phase_family(torch, policy, fa, ref, arch, layers, plen):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     prompt = serve.make_prompt(cfg, BATCH, plen, np.random.default_rng(0),
                                "cuda")
+    # MoE is served from a copy under moe.exact (no drops) with the same
+    # weights: at capacity_factor 1.25 a 4-token decode step has a
+    # capacity of 1 and drops what prefill keeps, so only the exact copy's
+    # teacher-forced decode can agree with its prefill.  The published
+    # config's prefill is held to the plain versions below, and its decode
+    # step is timed by where_the_time_goes
+    served = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, exact=True)) if cfg.moe else cfg
+    copy = " (moe.exact copy)" if cfg.moe else ""
     policy.set_policy("auto")
     prefill = build_prefill_step(cfg)
-    prefill(params, prompt)  # warm-up: cuBLAS's first-call setup
+    build_prefill_step(served)(params, prompt)  # cuBLAS's first-call setup
     torch.cuda.reset_peak_memory_stats()
     for mod in serve.KERNELS.values():
         mod.launches = 0
-    res = serve.generate(params, cfg, prompt, GEN)
+    res = serve.generate(params, served, prompt, GEN)
     launches = serve.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  prefill {BATCH}x{plen}: {res['prefill_ms']:.2f} ms"
+    print(f"  served{copy}: prefill {BATCH}x{plen}: {res['prefill_ms']:.2f} ms"
           + (f"; encoder for decode {res['encode_ms']:.2f} ms"
              if cfg.encdec else "")
           + f"; cache fill ({plen} decode steps) {res['fill_ms']:.1f} ms; "
@@ -2476,24 +2739,10 @@ def phase_family(torch, policy, fa, ref, arch, layers, plen):
     if tuple(res["tokens"].shape) != (BATCH, GEN):
         fail(f"{arch}: tokens shape {tuple(res['tokens'].shape)}")
     print("  sample (token ids):", res["tokens"][0, :16].tolist())
-
-    # decode vs prefill; with MoE on a copy under moe.exact (no drops) and
-    # the same weights: at capacity_factor 1.25 a 4-token decode step has
-    # a capacity of 1 and drops what prefill keeps
-    checked, total = res, dict(launches)
-    if cfg.moe:
-        exact = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, exact=True))
-        checked = serve.generate(params, exact, prompt, GEN)
-        total = serve.launch_counts()
-        if checked["launches"] != want:
-            fail(f"{arch} (moe.exact): launches {checked['launches']}, "
-                 f"expected {want}")
-    print(f"  prefill vs teacher-forced decode logits"
-          f"{' (moe.exact copy)' if cfg.moe else ''}: max |diff| "
-          f"{checked['max_abs_diff']:.3e} (atol 2e-3, rtol 1e-3, same "
-          f"argmax): {'ok' if checked['agree'] else 'FAIL'}")
-    if not checked["agree"]:
+    print(f"  prefill vs teacher-forced decode logits{copy}: max |diff| "
+          f"{res['max_abs_diff']:.3e} (atol 2e-3, rtol 1e-3, same argmax): "
+          f"{'ok' if res['agree'] else 'FAIL'}")
+    if not res["agree"]:
         fail(f"{arch}: prefill and teacher-forced decode logits disagree")
 
     # prefill through the kernels vs the plain versions on the card, each
@@ -2534,15 +2783,16 @@ def phase_family(torch, policy, fa, ref, arch, layers, plen):
     busy = where_the_time_goes(torch, cfg, params, prompt)
     out = {"arch": arch, "layers": cfg.n_layers, "params_b": n_params / 1e9,
            "weights_gb": weights / 1e9, "prompt": plen, "generated": GEN,
+           "served": "moe.exact copy" if cfg.moe else "published",
            "prefill_ms": res["prefill_ms"], "encode_ms": res["encode_ms"],
            "fill_ms": res["fill_ms"], "decode_ms": res["decode_ms"],
            "decode_tok_s": res["decode_tok_s"], "peak_gib": peak,
-           "busy": busy, "launches": total,
+           "busy": busy, "launches": launches,
            "b1_per_prefill": want["flash"],
-           "decode_vs_prefill_max_diff": checked["max_abs_diff"],
+           "decode_vs_prefill_max_diff": res["max_abs_diff"],
            "kernel_vs_plain_max_diff": diff, "routing_flips": n_flip,
            "tokens": tokens}
-    del params, res, checked, kern, plain, routes
+    del params, res, kern, plain, routes
     torch.cuda.empty_cache()
     return out
 
@@ -2567,6 +2817,163 @@ def phase_families(torch, policy, fa, ref):
     return runs, b1, t_phase
 
 
+def phase_family_train(torch, policy, kernels, arch, layers, experts, seq,
+                       stage):
+    """Phase 12 for one config of :data:`FAMILY_TRAIN`: (a)
+    ``launch.train.main`` for TRAIN_STEPS steps, (b) kernels against plain
+    versions over two steps (MoE routing flips counted), (c) the learning
+    check, (d) B1's plain-recompute backward at the config's shape.
+    ``stage``: the :class:`HostStage` that (b) stages the kernels' run in."""
+    import gc
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as launch
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import build_train_step
+
+    cfg = train_config(arch, layers, experts)
+    per_step = train_launches_per_step(cfg)
+    tokens = TRAIN_BATCH * seq
+    cuts = [f"{cfg.n_layers} layers"] + (
+        [f"{cfg.moe.n_experts} routed experts (top-{cfg.moe.top_k}, "
+         f"{cfg.moe.n_shared} shared)"] if cfg.moe else [])
+    print(f"== phase 12: train {cfg.name} published widths, "
+          f"{', '.join(cuts)}, batch {TRAIN_BATCH}, seq {seq}, {TRAIN_MICRO} "
+          f"microbatches, remat, AdamW fp32 ({card_line()})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mod in kernels.values():
+        mod.launches = 0
+    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(seq), "--microbatches",
+            str(TRAIN_MICRO), "--log-every", "1", "--seed", "0"]
+    if layers:
+        argv += ["--layers", str(layers)]
+    if experts:
+        argv += ["--experts", str(experts)]
+    # (a) the entry point
+    t0 = parts = time.perf_counter()
+    seconds = {}
+
+    def part(name):
+        nonlocal parts
+        seconds[name], parts = time.perf_counter() - parts, \
+            time.perf_counter()
+    res = launch.main(argv)
+    launches = {k: m.launches for k, m in kernels.items()}
+    step_ms = min(res["step_ms"][1:])
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    print(f"  launch.train.main: {time.perf_counter() - t0:.1f} s for "
+          f"{TRAIN_STEPS} steps; step ms {[round(t, 1) for t in res['step_ms']]}"
+          f"; {tokens / step_ms * 1e3:.0f} tok/s at the fastest later step; "
+          f"peak memory {res['peak_memory_gib']:.2f} of {total:.2f} GiB "
+          f"({total - res['peak_memory_gib']:.2f} free); losses "
+          f"{res['losses']}, gradient norms {res['grad_norms']}")
+    print(f"  B1 launches per step {res['launches']} (derived: {per_step}, "
+          f"decoder self-attention layers x {TRAIN_MICRO} microbatches x 2; "
+          f"the model sends each of them to B1, which raises rather than "
+          f"run the plain version on the card)")
+    if any(s != per_step for s in res["launches"]) or launches != {
+            k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        fail(f"{cfg.name}: kernel launches {res['launches']} a step, "
+             f"{launches} in all; expected {per_step} a step")
+    losses = res["losses"]
+    if not (np.isfinite(losses).all() and np.isfinite(res["grad_norms"])
+            .all()) or any(a == b for a, b in zip(losses, losses[1:])):
+        fail(f"{cfg.name}: losses {losses} (finite, each step's its own) or "
+             f"gradient norms {res['grad_norms']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("a")
+
+    # (b) kernels vs plain versions, two steps from one init
+    agree = train_kernels_vs_plain(torch, policy, cfg, kernels, per_step,
+                                   stage, seq=seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("b")
+
+    # (c) learning on the memorizable batch, until the loss falls; the
+    # second step profiled (the device only: Whisper's host-side events
+    # took ~15 s to collect), the later ones give the unprofiled wall
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = init_opt_state(params)
+    step = build_train_step(cfg, AdamWConfig(**LEARN), TRAIN_MICRO)
+    rng = np.random.default_rng(0)
+    learn, walls = [], []
+    for i in range(LEARN_STEPS):
+        batch = learnable_inputs(torch, cfg, rng, TRAIN_BATCH, seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize()
+        else:
+            params, opt, met = step(params, opt, batch)
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        learn.append(met["loss"].item())
+        if i >= 2 and learn[-1] < learn[0]:
+            break
+    learned = bool(np.isfinite(learn).all() and learn[-1] < learn[0])
+    learn_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  learning (on the learnable batch, {LEARN}, until the loss "
+          f"falls, at most {LEARN_STEPS} steps): losses "
+          f"{[round(x, 4) for x in learn]} in {len(learn)} steps; last / "
+          f"first {learn[-1] / learn[0]:.3f}; peak {learn_peak:.2f} GiB: "
+          f"{'ok' if learned else 'FAIL'}")
+    if not learned:
+        fail(f"{cfg.name}: the loss did not fall on the learnable batch")
+    busy = profile_device(torch, prof, walls[1])[0]
+    unprofiled = float(np.median(walls[2:]))
+    share = busy / unprofiled
+    del params, opt, prof, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("c")
+
+    # (d) B1's backward: the plain version recomputed, per call
+    back, back_host = plain_backward_ms(torch, "flash", cfg, seq=seq)
+    calls = per_step["flash"] // 2
+    part("d")
+    print(f"  profiled learning step: device {busy:.1f} ms against "
+          f"{unprofiled:.1f} ms host for an unprofiled step ({share:.1%} "
+          f"busy); B1's plain recompute in the backward, per call: "
+          f"{back:.3f} ms device "
+          f"({back_host:.3f} ms issued from Python one by one) x {calls} a "
+          f"step; seconds: " + ", ".join(f"({k}) {v:.1f}"
+                                         for k, v in seconds.items()))
+    return {"config": f"{cfg.name}, {', '.join(cuts)}, batch {TRAIN_BATCH} "
+                      f"x {seq}, {TRAIN_MICRO} microbatches",
+            "params_b": n_params(cfg) / 1e9,
+            "launches": launches, "launches_per_step": res["launches"][-1],
+            "losses": losses, "grad_norms": res["grad_norms"],
+            "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_memory_gib": res["peak_memory_gib"], "busy_share": share,
+            "plain_backward_ms": {"flash": back},
+            "plain_backward_host_ms": {"flash": back_host},
+            "learn_losses": learn, "learn_peak_gib": learn_peak,
+            "seconds": seconds, **agree}
+
+
+def phase_families_train(torch, policy, kernels, stage):
+    """Phase 12: each config of :data:`FAMILY_TRAIN` in turn, freed before
+    the next, the kernels' state of each staged in ``stage``."""
+    t_phase = time.perf_counter()
+    runs = {arch: phase_family_train(torch, policy, kernels, arch, layers,
+                                     experts, seq, stage)
+            for arch, layers, experts, seq in FAMILY_TRAIN}
+    t_phase = time.perf_counter() - t_phase
+    print(f"  phase 12: {t_phase:.1f} s")
+    return runs, t_phase
+
+
 def dryrun_child_main(path, gpu_name, part) -> int:
     """One part of phase 11 in a child process on the host (fake tensors
     and a fake process group: nothing is allocated and no card is touched):
@@ -2574,8 +2981,9 @@ def dryrun_child_main(path, gpu_name, part) -> int:
     shape on 16 x 16 with the card's constants; ``"full:<i>"``: the full
     dry run of ``DRYRUN_FULL[i]``, and with ``i == 0`` the anchor (phase
     6's Qwen2-1.5B training step, ``TRAIN_ARCHS[0]``, fp32, plain versions,
-    on a 1 x 1 mesh) and the collective bytes of phase 10 (e)'s MoE layer
-    on its mesh.  Writes one JSON file to ``path``."""
+    on a 1 x 1 mesh), the same for each of phase 12's configs, and the
+    collective bytes of phase 10 (e)'s MoE layer on its mesh.  Writes one
+    JSON file to ``path``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2598,14 +3006,16 @@ def dryrun_child_main(path, gpu_name, part) -> int:
         out["full"] = [dryrun.dryrun_one(arch, shape, gpu=gpu_name,
                                          verbose=False)]
         if i == 0:
-            arch, layers = TRAIN_ARCHS[0]
-            out["anchor"] = dryrun.dryrun_one(
-                arch, "anchor", gpu=gpu_name,
-                cfg=train_config(arch, layers),
-                mesh=LogicalMesh(("data", "model"), (1, 1)),
-                shape=InputShape("anchor", TRAIN_SEQ, TRAIN_BATCH, "train"),
-                num_microbatches=TRAIN_MICRO, dtype=torch.float32,
-                verbose=False)
+            def anchor(arch, layers, experts=None, seq=TRAIN_SEQ):
+                return dryrun.dryrun_one(
+                    arch, "anchor", gpu=gpu_name,
+                    cfg=train_config(arch, layers, experts),
+                    mesh=LogicalMesh(("data", "model"), (1, 1)),
+                    shape=InputShape("anchor", seq, TRAIN_BATCH, "train"),
+                    num_microbatches=TRAIN_MICRO, dtype=torch.float32,
+                    verbose=False)
+            out["anchor"] = anchor(*TRAIN_ARCHS[0])
+            out["family_anchors"] = {f[0]: anchor(*f) for f in FAMILY_TRAIN}
             out["ep_layer"] = roofline.moe_component(
                 get_config(EP_ARCH), LogicalMesh(("data", "model"), EP_MESH),
                 EP_TOKENS, torch.float32)
@@ -2672,11 +3082,13 @@ def gpu_name_from_smi() -> str:
         .strip()
 
 
-def phase_production_dryrun(child, train) -> dict:
+def phase_production_dryrun(child, train, famtrain) -> dict:
     """Phase 11: the dry run's report (the children started after phase
     5), the anchor's predicted peak against phase 6's measured plain-version peak
     of the same step, and the MFU the dry run's FLOPs and the measured
-    step give on this card."""
+    step give on this card; then each of phase 12's configs the same way,
+    held to ANCHOR_RTOL where the dry run ran no MoE, and recorded where
+    its DTensor MoE stands in for the capacity dispatch phase 12 ran."""
     from repro_torch.launch.hardware import get_gpu
     from repro_torch.models.moe import DTENSOR_FORMULATIONS
     print("== phase 11: production dry run (fake world and tensors, in "
@@ -2744,10 +3156,39 @@ def phase_production_dryrun(child, train) -> dict:
           f"{step_s * 1e3:.1f} ms: MFU {mfu:.3f} of fp32 peak")
     if not ok:
         fail("phase 11: the dry run's predicted peak misses phase 6's")
+    anchor = {"predicted_peak_bytes": want, "measured_peak_bytes": got,
+              "rel": rel, "flops": flops, "step_s": step_s, "mfu_fp32": mfu}
+    families, missed = {}, []
+    for arch, a in rep["family_anchors"].items():
+        f = famtrain[arch]
+        got = f["step2_peak_bytes"]["plain"]
+        want = a["bytes_per_device"]["peak"]
+        rel = (want - got) / got
+        moe_form = a.get("moe", {}).get("formulation")
+        held = moe_form is None
+        flops, step_s = a["per_device"]["flops"], f["step2_s"]["plain"]
+        mfu = flops / step_s / gpu.peak_flops["float32"]
+        families[arch] = {"predicted_peak_bytes": want,
+                          "measured_peak_bytes": got, "rel": rel,
+                          "held": held, "moe": moe_form, "flops": flops,
+                          "step_s": step_s, "mfu_fp32": mfu}
+        print(f"  (c) {f['config']}, 1x1: predicted peak "
+              f"{want / 2**30:.3f} GiB, measured {got / 2**30:.3f} GiB "
+              f"(phase 12, step 2 through the plain versions): {rel:+.1%}"
+              + (f" (limit +-{ANCHOR_RTOL:.0%}): "
+                 f"{'ok' if abs(rel) <= ANCHOR_RTOL else 'FAIL'}" if held
+                 else f", recorded, not held: the dry run's MoE is "
+                      f"{moe_form!r}, not the capacity dispatch phase 12 "
+                      f"ran")
+              + f"; {flops:.3e} FLOPs in {step_s * 1e3:.1f} ms: MFU "
+              f"{mfu:.3f}")
+        if held and abs(rel) > ANCHOR_RTOL:
+            missed.append(arch)
+    if missed:
+        fail(f"phase 11: the dry run's predicted peak misses phase 12's for "
+             f"{missed}")
     return {"roofline": rep["roofline"], "full": rep["full"],
-            "anchor": {"predicted_peak_bytes": want, "measured_peak_bytes":
-                       got, "rel": rel, "flops": flops, "step_s": step_s,
-                       "mfu_fp32": mfu},
+            "anchor": anchor, "family_anchors": families,
             "ep_layer": rep["ep_layer"], "seconds": rep["seconds"],
             "waited_s": waited}
 
@@ -3218,7 +3659,6 @@ def dist_rank_main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("DIST_RANK_JSON " + json.dumps(out), flush=True)
-    dist.destroy_process_group()
     return 0
 
 
@@ -3569,6 +4009,7 @@ def main() -> int:
 
     # phase 5's host-side reference starts first: it needs no card and is
     # the longest thing that runs beside phases 1-4
+    t_start = time.perf_counter()
     sim_dir = tempfile.TemporaryDirectory(prefix="phase5-sim-")
     sim_ref = SimulatorReference(sim_dir.name)
 
@@ -3608,7 +4049,10 @@ def main() -> int:
 
     paths = {arch: phase_serve(torch, policy, arch) for arch in ARCHS}
     total = {k: sum(p[k] for p in paths.values()) for k in paths[ARCHS[0]]}
+    t_ir = time.perf_counter()
+    print(f"  phases 1-4: {t_ir - t_start:.1f} s")
     ir, ir_run = phase_graph_ir(torch, fa, ref, sim_ref)
+    print(f"  phase 5: {time.perf_counter() - t_ir:.1f} s")
     sim_dir.cleanup()
     # phase 11's dry run starts once phase 5's reference child has ended
     # (the two would share the host's cores), and ends before phase 10
@@ -3616,8 +4060,9 @@ def main() -> int:
     dry_child = DryRunChild(dry_dir.name, gpu_name_from_smi())
     total["flash"] += ir["launches"]
     kmods = {"flash": fa, "ssd": sk, "rglru": rk}
-    train = {arch: phase_train(torch, policy, kmods, arch, layers)
-             for arch, layers in TRAIN_ARCHS}
+    stage = training_stage(torch, families=())
+    train = phase_train_all(torch, policy, kmods, stage)
+    stage.close()
     for t in train.values():
         for k, n in t["launches"].items():
             total[k] += n
@@ -3630,10 +4075,13 @@ def main() -> int:
     pp_b1, pipeline = phase_async(torch, fa, ref)
     total["flash"] += pp_b1["launches"]
     fams, fam_b1, fam_s = phase_families(torch, policy, fa, ref)
-    for run in fams.values():
+    stage = training_stage(torch, archs=())
+    famtrain, famtrain_s = phase_families_train(torch, policy, kmods, stage)
+    stage.close()
+    for run in (*fams.values(), *famtrain.values()):
         for k, n in run["launches"].items():
             total[k] += n
-    production = phase_production_dryrun(dry_child, train)
+    production = phase_production_dryrun(dry_child, train, famtrain)
     dry_dir.cleanup()
     with ref_dir:
         dist_b1, ranks = phase_dist(torch, fa, ref, ref_state, ir_losses,
@@ -3641,11 +4089,12 @@ def main() -> int:
     total["flash"] += sum(t["launches"] for t in dist_b1)
 
     def training(kind):
-        """Each training config's launches a step and plain recompute."""
+        """Each training config's launches a step and plain recompute
+        (phases 6 and 12)."""
         return {arch: {"launches_per_step": t["launches_per_step"][kind],
                        "launches": t["launches"][kind],
                        "plain_backward_ms": t["plain_backward_ms"][kind]}
-                for arch, t in train.items()
+                for arch, t in (*train.items(), *famtrain.items())
                 if t["launches_per_step"][kind]}
 
     def entry(name, source, replaces, launches, worst, t, **extra):
@@ -3682,6 +4131,16 @@ def main() -> int:
          "launches": 0, **fa_t[(192, "bfloat16")]},
         *({**fam_b1[arch], "launches": fams[arch]["launches"]["flash"]}
           for arch in fam_b1),
+        # phase 12 trains at the prefill shapes of phases 3 and 9 (a
+        # microbatch is 4 sequences); these launches are its own
+        {**fa_t[(192, "float32")],
+         "shape": "B4 H128 K128 S512 D192/128 causal fp32 (DeepSeek-V2 MLA "
+                  "training, phase 12)",
+         "launches": famtrain["deepseek-v2-236b"]["launches"]["flash"]},
+        *({**fam_b1[arch], "shape": fam_b1[arch]["shape"].replace(
+            "prefill)", "training, phase 12)"),
+           "launches": famtrain[arch]["launches"]["flash"]}
+          for arch in fam_b1),
         *dist_b1]
     kernels = [
         entry("flash_attention", csrc + "flash_attention.cu",
@@ -3706,7 +4165,9 @@ def main() -> int:
         for arch, t in train.items()}))
     print("elastic: " + json.dumps(elastic))
     print("pipeline: " + json.dumps(pipeline))
-    print("families: " + json.dumps({"runs": fams, "phase_s": fam_s}))
+    print("families: " + json.dumps({
+        "runs": fams, "phase_s": fam_s,
+        "training": famtrain, "training_phase_s": famtrain_s}))
     print("ranks: " + json.dumps(ranks))
     print("production: " + json.dumps(production))
     print(json.dumps({"kernels": kernels}))

@@ -26,11 +26,18 @@ device state): :func:`make_production_mesh` and :func:`make_smoke_mesh`.
 A logical mesh becomes a ``DeviceMesh`` over a fake world of its size for
 the dry run (:meth:`LogicalMesh.device_mesh`), or one process group per
 row of each axis over real ranks (:meth:`LogicalMesh.rank_groups`).
+
+A process group that :func:`make_runtime_mesh` initializes is destroyed
+when the rank's interpreter exits (:func:`_teardown_at_exit`): a gloo group
+left to the interpreter's own shutdown can abort the rank there.
 """
 
 from __future__ import annotations
 
+import atexit
+import faulthandler
 import os
+import sys
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -42,6 +49,9 @@ import torch.distributed as dist
 #: process group initializes from ``env://`` (``MASTER_ADDR`` /
 #: ``MASTER_PORT``, as under ``torchrun``)
 INIT_ENV = "REPRO_DIST_INIT"
+#: seconds the exit-time teardown of a rank's process group may take;
+#: past them the rank prints its threads' stacks and exits with code 1
+TEARDOWN_TIMEOUT = 30.0
 
 
 @dataclass
@@ -109,6 +119,28 @@ def _world_size(n_ranks: int | None) -> int:
     return world
 
 
+def _teardown_at_exit() -> None:
+    """Destroy the world group (and every subgroup) as the rank exits.
+    Left to the interpreter's shutdown, gloo's threads can be torn down
+    while still joinable, and the rank aborts with SIGABRT ("terminate
+    called without an active exception") after its work is done.  After
+    an uncaught exception the rank waits on nothing: its peers may be
+    inside an exchange with it, so it exits with code 1 at once and
+    ``run_ranks`` stops the others.  A teardown that takes longer than
+    :data:`TEARDOWN_TIMEOUT` exits with code 1 as well."""
+    if not dist.is_initialized():
+        return
+    if getattr(sys, "last_exc", None) is not None:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    faulthandler.dump_traceback_later(TEARDOWN_TIMEOUT, exit=True)
+    try:
+        dist.destroy_process_group()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
 def choose_backend(backend: str | None, device_type: str, world: int) -> str:
     """The process-group backend for ``world`` ranks on ``device_type``,
     raising where the request cannot be met."""
@@ -137,8 +169,9 @@ def make_runtime_mesh(n_ranks: int | None = None, *,
     """1-D mesh over the ranks of the world group, initializing the group
     from the environment (``RANK``, ``WORLD_SIZE`` and the rendezvous in
     ``REPRO_DIST_INIT``; see ``runtime.harness.rank_env``) unless it is
-    initialized already.  ``n_ranks``, when given, must equal the world
-    size.  ``device=None`` means ``cuda``."""
+    initialized already; a group initialized here is destroyed when the
+    process exits (:func:`_teardown_at_exit`).  ``n_ranks``, when given,
+    must equal the world size.  ``device=None`` means ``cuda``."""
     from repro_torch.device import resolve_device
 
     world = _world_size(n_ranks)
@@ -164,6 +197,7 @@ def make_runtime_mesh(n_ranks: int | None = None, *,
         dist.init_process_group(
             chosen, init_method=os.environ.get(INIT_ENV, "env://"),
             rank=rank, world_size=world, **kw)
+        atexit.register(_teardown_at_exit)
     mesh = RankMesh(rank, world, chosen, devices,
                     staged=chosen == "gloo" and dev_type == "cuda")
     # one world collective before any point-to-point call (NCCL's first

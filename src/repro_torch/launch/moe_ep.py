@@ -88,7 +88,6 @@ def main(argv=None) -> int:
     out = run(ranks, args)
     if out is not None:
         print("MOE_EP_JSON " + json.dumps(out), flush=True)
-    dist.destroy_process_group()
     return 0
 
 

@@ -15,7 +15,9 @@ the autograd of their plain versions.
       --batch 4 --seq 128 --elastic-probe
 
 ``--reduced`` swaps in the smoke-scale variant of the config; ``--layers``
-cuts the depth and keeps the widths.  Each step runs under the smoke mesh
+cuts the depth and ``--experts`` an MoE layer's routed experts, and both
+keep every width (the reference's trainer has neither: they size a
+published config to one card).  Each step runs under the smoke mesh
 (``make_smoke_mesh()``, (data=1, model=1)), as the reference's does, so
 that an MoE layer takes the expert-parallel formulation where the
 reference's trainer does (4096 tokens a microbatch or more).
@@ -154,6 +156,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths kept)")
+    ap.add_argument("--experts", type=int, default=None,
+                    help="cut an MoE layer's routed experts to this many "
+                         "(top-k, expert width, shared and dense layers "
+                         "kept)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -186,8 +192,17 @@ def main(argv=None) -> dict:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.experts is not None:
+        if cfg.moe is None:
+            ap.error(f"--experts: {cfg.name} has no MoE layers")
+        if args.experts < cfg.moe.top_k:
+            ap.error(f"--experts {args.experts} is below {cfg.name}'s "
+                     f"top_k of {cfg.moe.top_k}")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=args.experts))
     print(f"arch={cfg.name} ({cfg.family}) layers={cfg.n_layers} "
-          f"d={cfg.d_model} params~{cfg.param_count() / 1e6:.1f}M "
+          + (f"experts={cfg.moe.n_experts} " if cfg.moe else "")
+          + f"d={cfg.d_model} params~{cfg.param_count() / 1e6:.1f}M "
           f"device={device}")
 
     params = init_params(cfg, device=device, generator=torch.Generator(
@@ -215,7 +230,9 @@ def main(argv=None) -> dict:
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    out = {"arch": cfg.name, "layers": cfg.n_layers, "device": str(device),
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "experts": cfg.moe.n_experts if cfg.moe else None,
+           "device": str(device),
            "losses": [], "grad_norms": [], "lrs": [], "step_ms": [],
            "launches": []}
     rng = np.random.default_rng(0)

@@ -920,13 +920,9 @@ def main(argv=None) -> int:
             status = "ok" if c["ok"] else f"FAIL: {c.get('error')}"
             print(f"  {key:28s} {status}")
         print("RUNTIME_SELFTEST_JSON " + json.dumps(report), flush=True)
-    if not report["ok"]:
-        # the other ranks may be inside the failed case's exchanges: exit
-        # without a collective teardown (run_ranks kills them)
-        return 1
-    import torch.distributed as dist
-    dist.destroy_process_group()
-    return 0
+    # the process group is destroyed at exit (launch.mesh), within a
+    # time limit: after a failed case a peer may still be in an exchange
+    return 0 if report["ok"] else 1
 
 
 if __name__ == "__main__":

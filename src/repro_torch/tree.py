@@ -49,13 +49,16 @@ def tree_map(fn, *trees):
 def unflatten_like(tree, leaves):
     """``tree``'s structure with its leaves, in flattening order, replaced
     by ``leaves``."""
-    it = iter(leaves)
+    return _unflatten(tree, iter(leaves))
 
-    def rec(node):
-        if isinstance(node, dict):
-            out = {k: rec(node[k]) for k in sorted(node)}
-            return {k: out[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(rec(v) for v in node)
-        return next(it)
-    return rec(tree)
+
+def _unflatten(node, it):
+    # a module-level function: a nested one that calls itself is a cycle
+    # (function -> closure cell -> function) that keeps ``leaves`` -- a
+    # step's gradients -- alive until the cyclic garbage collector runs
+    if isinstance(node, dict):
+        out = {k: _unflatten(node[k], it) for k in sorted(node)}
+        return {k: out[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_unflatten(v, it) for v in node)
+    return next(it)

@@ -26,6 +26,7 @@ time limit, so a hang fails the test rather than stalling the suite.
 import dataclasses
 import json
 import os
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -328,10 +329,10 @@ def test_qwen2_block_pipeline_on_ranks_like_the_jax_simulator(block_run):
 
 # -- an invalid timetable on ranks --------------------------------------------
 
-#: each of 2 ranks: pipe2's micro train plan; a timetable whose first tick
-#: runs stage 1 before stage 0 and one that drops its last tick must raise
-#: ScheduleError on every rank, then the valid one runs
-INVALID_RANK = """
+#: each of 2 ranks: pipe2's micro train plan, its microbatch states, and
+#: two invalid timetables: one whose first tick runs stage 1 before stage 0
+#: (``early``) and one that drops its last tick (``short``)
+PIPE2_RANK = """
 import argparse, dataclasses, json
 import numpy as np
 from repro_torch import api
@@ -362,6 +363,10 @@ for name, bad in (("early", early), ("short", short)):
         out[name] = None
     except api.ScheduleError as e:
         out[name] = str(e)
+"""
+
+#: ... both must raise ScheduleError on every rank, then the valid one runs
+INVALID_RANK = PIPE2_RANK + """
 got = ex.run_schedule(tplan, sched, states)
 out["valid"] = float(sum(np.asarray(api.gather(r[tplan.loss_name]))
                          for r in got))
@@ -369,17 +374,68 @@ out["want"] = float(want_y.sum())
 print("INVALID_JSON " + json.dumps(out), flush=True)
 """
 
+#: ... both raise on every rank, and the rank exits at once
+RAISE_RANK = PIPE2_RANK + """
+print("RAISED_JSON " + json.dumps(out), flush=True)
+"""
+
+#: rank 1 raises an uncaught error while rank 0 waits for it in a barrier
+UNCAUGHT_RANK = """
+import argparse
+import torch.distributed as dist
+from repro_torch.launch.mesh import make_runtime_mesh
+ap = argparse.ArgumentParser()
+ap.add_argument("--backend"); ap.add_argument("--device")
+args = ap.parse_args()
+mesh = make_runtime_mesh(backend=args.backend, device=args.device)
+if mesh.rank == 1:
+    raise ValueError("rank 1 fails")
+dist.barrier()
+"""
+
+
+def rank_json(proc, tag):
+    return json.loads(next(x for x in proc.stdout.splitlines()
+                           if x.startswith(tag + " ")).split(" ", 1)[1])
+
 
 def test_invalid_timetable_raises_on_every_rank():
     procs = harness.run_ranks(INVALID_RANK, 2, backend="gloo",
                               device="cpu", timeout=RANK_TIMEOUT)
-    outs = [json.loads(next(x for x in p.stdout.splitlines()
-                            if x.startswith("INVALID_JSON ")).split(" ", 1)[1])
-            for p in procs]
+    outs = [rank_json(p, "INVALID_JSON") for p in procs]
     assert outs[0] == outs[1]
     assert "ran before its input" in outs[0]["early"]
     assert "never produced" in outs[0]["short"]
     assert outs[0]["valid"] == outs[0]["want"]
+
+
+def test_ranks_that_raise_then_exit_end_cleanly():
+    """Every rank raises (and catches) ScheduleError inside the executor's
+    exchanges and then exits: the process group is torn down at exit
+    (``launch.mesh``), so every rank exits 0 and writes nothing to its
+    stderr (a gloo group left to the interpreter's shutdown could abort
+    the rank there: "terminate called without an active exception")."""
+    procs = harness.run_ranks(RAISE_RANK, 2, backend="gloo", device="cpu",
+                              timeout=RANK_TIMEOUT)
+    for p in procs:
+        assert p.returncode == 0
+        assert p.stderr == "", p.stderr
+        out = rank_json(p, "RAISED_JSON")
+        assert "ran before its input" in out["early"]
+        assert "never produced" in out["short"]
+
+
+def test_an_uncaught_error_ends_the_launch_at_once():
+    """A rank that dies of an uncaught error does not wait on its peers at
+    exit: it exits 1 with its traceback, and ``run_ranks`` stops the rank
+    still waiting for it in a barrier long before the launch's limit."""
+    t0 = time.monotonic()
+    with pytest.raises(harness.RankError, match="exited with code 1") as err:
+        harness.run_ranks(UNCAUGHT_RANK, 2, backend="gloo", device="cpu",
+                          timeout=RANK_TIMEOUT)
+    assert time.monotonic() - t0 < RANK_TIMEOUT / 3
+    assert "ValueError: rank 1 fails" in err.value.outputs[1].stderr
+    assert "terminate called" not in err.value.outputs[1].stderr
 
 
 # -- in this process ----------------------------------------------------------

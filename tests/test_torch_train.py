@@ -1,8 +1,10 @@
 """The port's production training path against the JAX package's, on the
 CPU at reduced size: ``loss_fn`` and its gradients (with and without
 remat), AdamW's ``apply_updates``, three steps of ``build_train_step``
-(one and two microbatches), the copied data pipeline, checkpoints written
-by either package and read by the other, the trainer CLI, and the copied
+(one and two microbatches; also for DeepSeek-V2, Grok-1, Qwen2-VL and
+Whisper on the trainers' batches, their MoE dropping tokens at capacity),
+the copied data pipeline, checkpoints written by either package and read
+by the other, the trainer CLI (and its ``--experts`` cut), and the copied
 strategy search.
 
 Parameters come from the JAX ``init_params(PRNGKey(0))`` and are carried
@@ -22,6 +24,7 @@ Tolerances (fp32 sums in other orders on the two sides):
 * data pipeline, checkpoints, strategy search: exact.
 """
 
+import dataclasses
 import os
 import re
 
@@ -46,12 +49,22 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import steps as tsteps  # noqa: E402
 from repro_torch.tree import (named_leaves, tree_leaves,  # noqa: E402
                               unflatten_like)
 
 ARCHS = ["qwen2-1.5b", "mamba2-370m", "recurrentgemma-9b"]
+#: MLA with MoE, MoE, embedding inputs with M-RoPE, the audio
+#: encoder-decoder: the train-step parity cases of their own, at batch B x
+#: FAMILY_S.  Their MoE runs the capacity dispatch (``exact`` off) at half
+#: the mean load (capacity factor FAMILY_CAPACITY), so that every step
+#: drops tokens: at the published 1.25 the reduced DeepSeek-V2's near-even
+#: routing at init drops none
+FAMILY_ARCHS = ["deepseek-v2-236b", "grok-1-314b", "qwen2-vl-72b",
+                "whisper-large-v3"]
+FAMILY_S, FAMILY_CAPACITY = 32, 0.5
 LOSS_RTOL = 1e-5
 GRAD_NORMWISE = 1e-4
 PARAM_NORMWISE = 1e-4
@@ -178,10 +191,41 @@ def test_apply_updates_matches_jax(clip, count):
         assert _worst(port, ref, cfg) <= UPDATE_NORMWISE
 
 
+def _family_configs(arch):
+    """The reduced configs, MoE's capacity dispatch at FAMILY_CAPACITY."""
+    out = []
+    for cfg in _configs(arch):
+        if cfg.moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, exact=False, capacity_factor=FAMILY_CAPACITY))
+        out.append(cfg)
+    return out
+
+
+def _trainer_batches(jcfg, cfg, seed):
+    """The two trainers' batches (``make_batch``) from one seed: the JAX
+    package's (jnp arrays) and the port's (CPU tensors); embedding inputs
+    carry ``positions3``, Whisper ``audio_embeds``."""
+    from repro.launch import train as jtrain
+    mk = dict(vocab=cfg.vocab, max_len=FAMILY_S, seed=seed)
+    want = jtrain.make_batch(jpipe.SyntheticCorpus(jpipe.CorpusConfig(**mk)),
+                             jcfg, B, FAMILY_S, np.random.default_rng(seed))
+    got = tlaunch.make_batch(tpipe.SyntheticCorpus(tpipe.CorpusConfig(**mk)),
+                             cfg, B, FAMILY_S, np.random.default_rng(seed),
+                             "cpu")
+    return want, got
+
+
 @pytest.mark.parametrize("micro", [1, 2])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_train_step_matches_jax_over_three_steps(arch, micro):
-    jcfg, cfg = _configs(arch)
+    """Three steps of ``build_train_step`` from the JAX package's init.
+    The families take the trainers' batches (the ``positions3`` split of
+    M-RoPE, the encoder's inputs) and drop tokens at MoE capacity: each
+    step of the port drops some, and routes as the JAX package's does, or
+    the losses would part."""
+    family = arch in FAMILY_ARCHS
+    jcfg, cfg = _family_configs(arch) if family else _configs(arch)
     ocfg = dict(lr=1e-3, warmup_steps=2)
     jparams = _jax_params(jcfg)
     jopt = jadamw.init_opt_state(jparams)
@@ -192,10 +236,21 @@ def test_train_step_matches_jax_over_three_steps(arch, micro):
     step = tsteps.build_train_step(cfg, tadamw.AdamWConfig(**ocfg),
                                    num_microbatches=micro)
     for i in range(3):
-        nb = _batch(cfg, seed=i)
-        jparams, jopt, jmet = jstep(
-            jparams, jopt, {k: jnp.asarray(v) for k, v in nb.items()})
-        params, opt, met = step(params, opt, _torch_batch(nb))
+        if family:
+            jb, tb = _trainer_batches(jcfg, cfg, seed=i)
+        else:
+            nb = _batch(cfg, seed=i)
+            jb = {k: jnp.asarray(v) for k, v in nb.items()}
+            tb = _torch_batch(nb)
+        jparams, jopt, jmet = jstep(jparams, jopt, jb)
+        tmoe.routing_log = [] if cfg.moe else None
+        try:
+            params, opt, met = step(params, opt, tb)
+            routes = tmoe.routing_log
+        finally:
+            tmoe.routing_log = None
+        if cfg.moe:
+            assert any(not bool(keep.all()) for _, keep in routes), i
         want = float(jmet["loss"])
         assert abs(met["loss"].item() - want) <= LOSS_RTOL * abs(want), i
         assert abs(met["grad_norm"].item() - float(jmet["grad_norm"])) <= \
@@ -376,6 +431,34 @@ def test_tree_flattens_in_jax_order(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_frees_its_gradients_without_the_collector(arch):
+    """A warm step leaves no tensor in reference cycles: the step's
+    gradients are freed when it returns, not when the cyclic garbage
+    collector next runs (a recursive closure in ``unflatten_like`` held
+    them, one parameter set's worth of device memory past the step)."""
+    import gc
+    _, cfg = _configs(arch)
+    params = tm.init_params(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    opt = tadamw.init_opt_state(params)
+    step = tsteps.build_train_step(cfg, tadamw.AdamWConfig(), 2)
+    batch = _torch_batch(_batch(cfg, b=4, s=16))
+    params, opt, _ = step(params, opt, batch)
+    gc.collect()
+    gc.disable()
+    try:
+        params, opt, _ = step(params, opt, batch)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        cyclic = [x for x in gc.garbage if torch.is_tensor(x)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert cyclic == []
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_trainer_cli_runs_on_the_cpu(arch, tmp_path, capsys):
     ck = str(tmp_path / "ck")
     out = tlaunch.main(["--device", "cpu", "--reduced", "--arch", arch,
@@ -410,6 +493,38 @@ def test_trainer_cli_runs_the_new_families(arch):
     assert out["losses"][0] != out["losses"][1]
     assert np.isfinite(out["grad_norms"]).all()
     assert out["launches"] == [{"flash": 0, "ssd": 0, "rglru": 0}] * 2
+
+
+def test_trainer_cli_cuts_experts(capsys, monkeypatch):
+    """``--experts N`` cuts an MoE layer's routed experts and keeps top-k,
+    the expert width, the shared experts and the dense layer; it is
+    refused on a config without MoE and below top-k."""
+    full = get_config("deepseek-v2-236b").reduced()
+    seen = {}
+
+    def spy(cfg, **kw):
+        seen["cfg"] = cfg
+        return tm.init_params(cfg, **kw)
+    monkeypatch.setattr(tlaunch, "init_params", spy)
+    args = ["--device", "cpu", "--reduced", "--steps", "2", "--batch", "4",
+            "--seq", "32", "--no-strategy-report"]
+    out = tlaunch.main(args + ["--arch", "deepseek-v2-236b", "--experts",
+                               "2"])
+    assert "experts=2 " in capsys.readouterr().out
+    moe = seen["cfg"].moe
+    assert out["experts"] == moe.n_experts == 2
+    assert moe == dataclasses.replace(full.moe, n_experts=2)
+    assert moe.top_k == 2 and moe.n_shared == full.moe.n_shared == 1
+    assert dataclasses.replace(seen["cfg"], moe=full.moe) == full
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    assert np.isfinite(out["grad_norms"]).all()
+    for bad, why in ((["--arch", "qwen2-1.5b", "--experts", "2"],
+                      "has no MoE layers"),
+                     (["--arch", "deepseek-v2-236b", "--experts", "1"],
+                      "below deepseek-v2-236b's top_k of 2")):
+        with pytest.raises(SystemExit):
+            tlaunch.main(args + bad)
+        assert why in capsys.readouterr().err
 
 
 def test_trainer_cli_runs_the_elastic_probe(capsys):

@@ -14,6 +14,8 @@ Phases, in the order given:
   ``chip_smoke.TRAIN_ARCHS``.
 * ``families``: phase 9, DeepSeek-V2, Grok-1, Qwen2-VL and Whisper
   served at published widths.
+* ``famtrain``: phase 12, the same families trained through
+  ``launch.train.main`` (``chip_smoke.FAMILY_TRAIN``).
 * ``dist``: phase 10, ranks sharing the card: the rank selftest (comm
   and async cases at 2 ranks, comm, api, async and search cases at 4),
   then phase 5's program on 4 ranks under dp2 x tp2 and under the hsize=2
@@ -25,8 +27,8 @@ Phases, in the order given:
   (``repro_torch.launch.moe_ep``), against rank 0's single-process
   dispatch and the dry run's all-reduce bytes for that layer.
 * ``dryrun``: phase 11: the dry-run child (rooflines, full dry runs, the
-  anchor's prediction) beside phase 6's Qwen2-1.5B run, which gives the
-  anchor's measured side.
+  anchors' predictions) beside phase 6's Qwen2-1.5B run and phase 12,
+  which give the anchors' measured sides.
 
 Each phase prints what it prints in ``chip_smoke.py`` and then one line
 ``<phase>: {json}``.  A phase that fails exits non-zero, as in
@@ -41,8 +43,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("attention", "ssd", "rglru", "train", "families", "dist", "ep",
-          "dryrun")
+PHASES = ("attention", "ssd", "rglru", "train", "families", "famtrain",
+          "dist", "ep", "dryrun")
 
 
 def dist(torch, cs, fa, ref):
@@ -79,14 +81,16 @@ def ep(torch, cs):
     return {"e": cs.check_ep([{"e": e}], layer)}
 
 
-def dryrun(torch, cs, policy, kernels):
-    """Phase 11 with phase 6's first config as the anchor's measured side."""
+def dryrun(torch, cs, policy, kernels, stage):
+    """Phase 11 with phase 6's first config and phase 12 as the anchors'
+    measured sides."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="phase11-") as d:
         child = cs.DryRunChild(d, cs.gpu_name_from_smi())
-        arch, layers = cs.TRAIN_ARCHS[0]
-        train = {arch: cs.phase_train(torch, policy, kernels, arch, layers)}
-        out = cs.phase_production_dryrun(child, train)
+        train = cs.phase_train_all(torch, policy, kernels, stage,
+                                   cs.TRAIN_ARCHS[:1])
+        famtrain, _ = cs.phase_families_train(torch, policy, kernels, stage)
+        out = cs.phase_production_dryrun(child, train, famtrain)
     out.pop("roofline")
     return out
 
@@ -113,27 +117,38 @@ def main(argv) -> int:
     print(cs.card_line())
     _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
     gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels = {"flash": fa, "ssd": sk, "rglru": rk}
+    stages = []
+
+    def stage(**configs):
+        """A host stage for phase 6 or 12, freed after the phase."""
+        stages.append(cs.training_stage(torch, **configs))
+        return stages[-1]
     runs = {
         "attention": lambda: cs.phase_attention(torch, fa, ref, gen),
         "ssd": lambda: cs.phase_ssd(torch, sk, ref, gen),
         "rglru": lambda: cs.phase_rglru(torch, rk, ref, gen),
-        "train": lambda: {arch: cs.phase_train(
-            torch, policy, {"flash": fa, "ssd": sk, "rglru": rk}, arch,
-            layers) for arch, layers in cs.TRAIN_ARCHS},
+        "train": lambda: cs.phase_train_all(torch, policy, kernels,
+                                            stage(families=())),
         "families": lambda: cs.phase_families(torch, policy, fa, ref),
+        "famtrain": lambda: cs.phase_families_train(torch, policy, kernels,
+                                                    stage(archs=())),
         "dist": lambda: dist(torch, cs, fa, ref),
         "ep": lambda: ep(torch, cs),
-        "dryrun": lambda: dryrun(torch, cs, policy,
-                                 {"flash": fa, "ssd": sk, "rglru": rk}),
+        "dryrun": lambda: dryrun(torch, cs, policy, kernels, stage()),
     }
     for name in names:
         t0 = time.perf_counter()
         out = runs[name]()
+        while stages:
+            stages.pop().close()
         if name == "families":
             fams, b1, _ = out
             out = {"runs": fams, "b1": b1}
         elif name == "train":
             out = {"runs": out}
+        elif name == "famtrain":
+            out = {"runs": out[0]}
         elif name == "dist":
             b1, ranks = out
             out = {"ranks": ranks, "b1": b1}
