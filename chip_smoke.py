@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    must raise for a pair the kernel is not built for), the SSD scan (y and
    the final state) and
    the RG-LRU scan (bf16 cases also against the plain version on the same
-   bf16 inputs, output for output).  At the main shapes it times the
+   bf16 inputs, output for output).  MLA's pair has a kernel of its own in
+   each type (fp32 register-blocked on the CUDA cores, bf16 on wgmma fed by
+   TMA), each checked at every ragged, windowed and small-grid case of
+   ``attention_cases``.  At the main shapes it times the
    kernel's wrapper, the kernels alone where the wrapper prepares their
    inputs (the SSD scan), the plain version, the bound, and one library
    call where one computes the same function
@@ -23,7 +26,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    Times are device times (calls captured in a CUDA graph and replayed);
    the wrapper's time issued from Python call by call stands beside.  The
    RG-LRU wrapper must run exactly one CUDA kernel a call (``torch.profiler``)
-   and its kernel must build without spills.
+   and its kernel must build without spills; so must both MLA kernels.
 4. serve: full-width, full-depth Qwen2-1.5B (28 layers), then Mamba2-370M
    (48 layers) and RecurrentGemma-9B (38 layers), each fp32 with random
    weights from seed 0 and freed before the next, each answering 4 prompts
@@ -566,6 +569,23 @@ def attention_cases():
          False, None, "bshd"),
         ("fully-masked rows MLA", "bfloat16", 1, 2, 1, 256, 128, (192, 128),
          True, 16, "bhsd"),
+        # each branch of the two MLA kernels (fp32: 64 rows x 64 keys a
+        # tile; bf16: 128 rows x 64 keys on wgmma) in both types, beside the
+        # cases above: Sq, Sk off the tiles, Sq < Sk and Sq > Sk, no key for
+        # rows under a window, non-causal, and a grid smaller than the card
+        ("MLA ragged bf16", "bfloat16", 1, 4, 2, 300, 200, (192, 128), True,
+         None, "bshd"),
+        ("MLA non-causal", "float32", 1, 4, 2, 300, 333, (192, 128), False,
+         None, "bshd"),
+        *((f"MLA {what}{'' if dt == 'float32' else ' bf16'}", dt, *shape,
+           (192, 128), True, None, "bshd")
+          for dt in ("float32", "bfloat16")
+          for what, shape in (("1/77", (1, 2, 2, 1, 77)),
+                              ("Sq < Sk", (1, 4, 2, 100, 333)),
+                              ("Sq > Sk", (1, 4, 2, 333, 100)),
+                              ("B1 H2", (1, 2, 2, 512, 512)))),
+        ("fully-masked rows MLA fp32", "float32", 1, 2, 1, 256, 128,
+         (192, 128), True, 16, "bhsd"),
     ]
 
 
@@ -4040,6 +4060,8 @@ def main() -> int:
     print(f"  ptxas spills: {spills or 'none'}")
     if any(s.startswith("rglru_scan:") for s in spills):
         fail("the RG-LRU kernel spills registers")
+    if any("flash_mla_" in s for s in spills):
+        fail("an MLA attention kernel spills registers")
 
     print("== phase 3: kernels vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -9,22 +9,26 @@
 // or DeepSeek-V2's MLA pair: q and k at D = 192, v at Dv = 128 (the scale
 // stays 1/sqrt(D)); the output has v's head dim and the input's type.  The
 // Pallas kernel sizes v and the output by q's D, so it cannot run MLA; the
-// JAX model's plain path, whose output follows v, is what this computes.  Query head h reads KV head h / (H / KH) straight from
-// the un-repeated K/V, and any row strides are taken (unit last dim, rows
-// 16-byte aligned; the wrapper checks).  One block owns (batch b, query head
-// h, a tile of query rows); the Pallas kernel's sequential k-block grid axis
-// is the loop over key tiles inside the block.  The query tile varies
-// slowest in the (flat) grid, reversed under a causal mask, so every head's
-// heaviest tiles are issued first and the last blocks to start are the
-// short ones.
+// JAX model's plain path (models/layers.py `sdpa`), whose output follows v,
+// is what this computes.  Query head h reads KV head h / (H / KH) straight
+// from the un-repeated K/V, and any row strides are taken (unit last dim,
+// rows 16-byte aligned; the wrapper checks).  The Pallas kernel's
+// sequential k-block grid axis is a loop over key tiles inside a block.
 //
 // What bounds it on an H100 SXM.  Qwen2-1.5B prefill (B 4, H 12, KV 2, S 512,
 // D 128, causal) is ~3.2 GFLOP over ~29 MB in fp32: ~0.048 ms at 67 TFLOP/s
 // on the CUDA cores against ~0.009 ms of memory, so fp32 is bound by
 // operations.  RecurrentGemma-9B prefill (B 4, H 16, KV 1, S 512, D 256,
-// window 2048, which never bites at 512) is ~8.6 GFLOP: ~0.13 ms.  In bf16
-// the tensor cores' 989 TFLOP/s make the same work bound by bytes (~0.004
-// and ~0.011 ms).  So the two types get two designs.
+// window 2048, which never bites at 512) is ~8.6 GFLOP: ~0.13 ms.  DeepSeek-
+// V2's MLA prefill (B 4, H = KV = 128, S 512, q/k 192, v 128, causal) is
+// ~43 GFLOP: 0.642 ms.  In bf16 the tensor cores' 989 TFLOP/s make the same
+// work bound by bytes (~0.004, ~0.011 ms, and 0.100 ms for MLA's ~335 MB).
+// So the two types get two designs, and MLA, whose pair is the widest and
+// whose head count fills the card, gets a design of its own in each.
+//
+// D = 64, 128, 256.  One block owns (batch b, query head h, a tile of query
+// rows); the query tile varies slowest in the (flat) grid, reversed under a
+// causal mask, so every head's heaviest tiles are issued first.
 //
 // bf16: tensor cores, a FlashAttention-2 layout.  A block of 4 warps takes
 // 64 query rows, 16 per warp.  S = Q K^T and O += P V run on
@@ -40,11 +44,10 @@
 // operand of P V directly; S never goes to shared memory.  Rounding P
 // departs from the Pallas kernel, which keeps P in fp32; at the main shapes
 // the worst error stays under half the 2e-2 tolerance, so P V is one bf16
-// product.  At D <= 128, and at MLA's 192 / 128 (48 registers of Q beside
-// 64 of O), the warp keeps its Q fragments in registers (64 keys a tile); at
-// D = 256 the O accumulator alone is 128 fp32 registers a thread, so Q stays
-// in shared memory and is re-read with ldmatrix per k-step, with 32-key
-// tiles.
+// product.  At D <= 128 the warp keeps its Q fragments in registers (64
+// keys a tile); at D = 256 the O accumulator alone is 128 fp32 registers a
+// thread, so Q stays in shared memory and is re-read with ldmatrix per
+// k-step, with 32-key tiles.
 //
 // fp32: exact, on the CUDA cores (no TF32).  A 16 x TY thread grid; thread
 // (ty, tx) owns rows ty + TY i of both S and O (4 of them), keys tx + 16 j of
@@ -56,7 +59,41 @@
 // P V.  K and V have their own buffers: V of tile t loads (cp.async) while
 // S is computed, K of tile t+1 while P V is.  Shared memory is sized for
 // two blocks an SM: 64 x 64 tiles at D = 128 (112 KB), 32 x 32 at D = 256
-// (100 KB, Q, K, V and P) and at 192 / 128 (68 KB).
+// (100 KB, Q, K, V and P).
+//
+// MLA fp32 (flash_mla_f32_kernel), bound by its FMAs: register-blocked like
+// an SGEMM micro-kernel.  A block of 128 threads owns 64 query rows; thread
+// (ty, tx) owns 8 rows x 4 keys of S (tx + 16 j) and 8 rows x 8 columns of
+// O, so a step of 4 along d takes 12 LDS.128 for 128 FMAs in Q K^T and 16
+// for 256 in P V.  Key tiles are 64 wide.  K and
+// V stream through a ring of two 24 KB slots in quarters of a tile (K's two
+// halves of d, V's two halves of the keys), one barrier each, so Q (48 KB),
+// P (16 KB) and the ring fit 112 KB and two blocks (8 warps) share an SM,
+// each hiding the other's barriers and copies; the copies advance their
+// addresses instead of recomputing them.  The softmax branches once a tile
+// (masks only where the warp's rows meet one) and uses MUFU.EX2; O is
+// rescaled only when some row's max moved.  At 254 registers a thread there
+// is no room to double-buffer the operands (that spills), so the loop's
+// shared-memory latency is hidden by the other warps alone.
+//
+// MLA bf16 (flash_mla_bf16_kernel), bound by bytes: Hopper's own design.
+// One persistent block an SM walks work items (a 128-row query tile of one
+// head); items of one head run side by side on neighbouring blocks, so
+// their K and V come from memory once and from L2 after.  A producer
+// warpgroup (one thread, 40 registers after setmaxnreg) issues TMA loads
+// (cp.async.bulk.tensor, 128-byte swizzle, tensor maps encoded per call
+// from the strides) completed on mbarriers: Q double buffered across items,
+// K (3 slabs of 64 keys x 64 d) and V (2 slabs) in a 2-stage ring that runs
+// on across items, so the next item's loads overlap this one's work.  Two
+// consumer warpgroups (232 registers) own 64 query rows each: Q's A
+// fragments are loaded once an item into registers (ldmatrix), S = Q K^T
+// is wgmma m64n64k16 with A from registers and K from shared memory, P is
+// rounded to bf16 in registers and O += P V is wgmma m64n128k16 with V
+// N-major through a transposed descriptor.  A warpgroup skips the key
+// tiles its rows cannot see.  O is staged in the warp's own rows of the Q
+// buffer and leaves in whole 256-byte rows.  Both matter more here than
+// the products' schedule: with Q read from shared memory too, S alone
+// would want all of shared memory's 128 bytes a cycle.
 //
 // Key tiles that a whole query tile cannot see (above the causal diagonal,
 // before the window) are skipped.  That is exact for every row with at
@@ -73,6 +110,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -86,6 +124,15 @@ namespace {
 using hopper::cp_async16;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::tma_load_4d;
+using hopper::wgmma_commit;
+using hopper::wgmma_desc_sw128;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
 using bf16 = __nv_bfloat16;
 
 constexpr float MASKED = -1e30f;  // the Pallas kernel's NEG_INF
@@ -153,6 +200,37 @@ __device__ __forceinline__ float masked_logit(const Params& p, float s,
   if ((p.causal && ki > qi) || (p.window > 0 && ki <= qi - p.window))
     return MASKED;
   return s * scale;
+}
+
+// masked_logit for the MLA kernels, with selects instead of branches, so
+// that a tile's 32 logits a thread compile to straight-line code.
+__device__ __forceinline__ float masked_logit_sel(const Params& p, float s,
+                                                  float scale, int qi,
+                                                  int ki) {
+  const bool hidden = (p.causal & (ki > qi)) |
+                      ((p.window > 0) & (ki <= qi - p.window));
+  const float x = hidden ? MASKED : s * scale;
+  return ki >= p.Sk ? -INFINITY : x;
+}
+
+// Whether query row q sees some key (it does unless a window, with Sq >
+// Sk, leaves it none; emptiness only grows with q).
+__device__ __forceinline__ bool has_key(const Params& p, int q) {
+  const int lo = p.window > 0 ? max(0, q - p.window + 1) : 0;
+  const int hi = p.causal ? min(p.Sk - 1, q) : p.Sk - 1;
+  return lo <= hi;
+}
+
+// Whether query rows [lo, hi] can leave out keys [k0, k0 + bk): the rows
+// are past Sq, or every pair is masked and every row sees a key elsewhere.
+// Then the tile adds exactly nothing: after a visible key, exp(-1e30 - m)
+// == 0; before one, alpha == 0 wipes it when the key arrives.
+__device__ __forceinline__ bool rows_skip_tile(const Params& p, int lo, int hi,
+                                               int k0, int bk) {
+  if (lo >= p.Sq) return true;
+  const bool masked = (p.causal && k0 > hi) ||
+                      (p.window > 0 && k0 + bk - 1 <= lo - p.window);
+  return masked && has_key(p, hi);
 }
 
 // ---------------------------------------------------------------- bf16 ---
@@ -391,10 +469,6 @@ struct F32Tiles<128> {
   static constexpr int BQ = 64, BK = 64, TY = 16;
 };
 template <>
-struct F32Tiles<192> {  // MLA: q and k at 192, v at 128
-  static constexpr int BQ = 32, BK = 32, TY = 8;
-};
-template <>
 struct F32Tiles<256> {
   static constexpr int BQ = 32, BK = 32, TY = 8;
 };
@@ -582,6 +656,577 @@ __global__ void __launch_bounds__(16 * F32Tiles<D>::TY, 2)
   }
 }
 
+// ------------------------------------------------------------ MLA fp32 ---
+
+// DeepSeek-V2's MLA pair in fp32: q and k at 192, v at 128.  A block of 128
+// threads takes 64 query rows as a 16 x 8 thread grid; thread (ty, tx) owns
+// rows 8 ty .. 8 ty + 7 of S and O, keys tx + 16 j of S and columns 4 tx +
+// 64 j of O.  K and V stream through a ring of two 24 KB slots in quarters
+// of a 64-key tile: K's d in [0, 96) and [96, 192), then V's keys [0, 32)
+// and [32, 64).
+struct MlaF32 {
+  static constexpr int D = 192, DV = 128, BQ = 64, BK = 64, THREADS = 128;
+  static constexpr int R = 8;   // rows a thread owns
+  static constexpr int CK = 4;  // keys a thread owns in S
+  static constexpr int CV = 2;  // float4 columns a thread owns in O
+  static constexpr int DH = D / 2, KH = BK / 2;  // a K quarter's d, V's keys
+  static constexpr int SLOT = BK * DH;           // floats (KH * DV fits)
+  // Q, P and the two slots: 112 KB, two blocks an SM
+  static constexpr size_t SMEM =
+      sizeof(float) * (size_t(BQ) * D + size_t(BQ) * BK + 2 * size_t(SLOT));
+};
+
+// Issue the copies of rows [row0, row0 + nrows) of a slab (W fp32 columns
+// from `src`, rows `ld` apart) into an R x W tile whose 16-byte chunk c of
+// row r sits at chunk c ^ ((r >> SH) & 7), or at c when SH < 0; rows past
+// nrows are zero-filled.
+template <int W, int R, int THREADS, int SH>
+__device__ __forceinline__ void load_slab_f32(float* dst, const float* src,
+                                              int64_t ld, int row0,
+                                              int nrows) {
+  constexpr int WC = W / 4, DR = THREADS / WC, DC = THREADS % WC;
+  static_assert(R * WC % THREADS == 0, "whole rounds of copies");
+  // thread i copies chunks i, i + THREADS, ...: (row, chunk) and the source
+  // advance by (DR, DC), plus a row when the chunk wraps
+  int r = threadIdx.x / WC, c = threadIdx.x % WC;
+  const float* g = src + int64_t(row0 + r) * ld + 4 * c;
+#pragma unroll
+  for (int i = 0; i < R * WC / THREADS; ++i) {
+    const int sc = SH < 0 ? c : c ^ ((r >> SH) & 7);
+    cp_async16(dst + r * W + 4 * sc, r < nrows ? g : src, r < nrows);
+    r += DR;
+    c += DC;
+    g += DR * ld + 4 * DC;
+    if (c >= WC) {
+      c -= WC;
+      r += 1;
+      g += ld - 4 * WC;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(MlaF32::THREADS, 2)
+    flash_mla_f32_kernel(const Params p) {
+  constexpr int D = MlaF32::D, DV = MlaF32::DV, BQ = MlaF32::BQ,
+                BK = MlaF32::BK, THREADS = MlaF32::THREADS;
+  constexpr int R = MlaF32::R, CK = MlaF32::CK, CV = MlaF32::CV;
+  constexpr int DH = MlaF32::DH, KH = MlaF32::KH, SLOT = MlaF32::SLOT;
+
+  extern __shared__ __align__(128) float smem[];
+  float* Qs = smem;          // BQ x D, chunks swizzled by (r >> 3) & 7
+  float* Ps = Qs + BQ * D;   // BQ x BK, chunks swizzled by ((r >> 3) & 1) * 4
+  float* slots = Ps + BQ * BK;  // 2 x SLOT: BK x DH of K swizzled by r & 7,
+                                // or KH x DV of V
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const BlockIndex bi = block_index(p);
+  const int q0 = bi.qt * BQ;
+  const int h = bi.h, b = bi.b;
+  const int kvh = h / (p.H / p.KH);
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kp =
+      static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vp =
+      static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  float* op = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  const int rows = min(BQ, p.Sq - q0);
+  const KeyRange kr = key_range<BK>(p, q0, rows);
+  // the 16 rows of this thread's warp, which skips the tiles they need not
+  // see (above the diagonal, before the window)
+  const int wlo = q0 + 16 * (ty / 2), whi = wlo + 15;
+  const int qc = ty & 7;        // Q's swizzle for rows 8 ty + i
+  const int kc = tx & 7;        // K's for keys tx + 16 j
+  const int pc = (ty & 1) * 4;  // P's for rows 8 ty + i
+  const float scale2 = p.scale * LOG2E;
+
+  // load i of the ring: quarter i % 4 of key tile i / 4, into slot i % 2
+  auto issue = [&](int i) {
+    const int k0 = (kr.t0 + i / 4) * BK, part = i % 4;
+    float* dst = slots + (i & 1) * SLOT;
+    if (part < 2) {
+      load_slab_f32<DH, BK, THREADS, 0>(dst, kp + part * DH, p.k_ss, k0,
+                                        p.Sk - k0);
+    } else {
+      const int v0 = k0 + (part - 2) * KH;
+      load_slab_f32<DV, KH, THREADS, -1>(dst, vp, p.v_ss, v0, p.Sk - v0);
+    }
+  };
+  for (int i = threadIdx.x; i < BQ * (D / 4); i += THREADS) {
+    const int r = i / (D / 4), c = i % (D / 4);
+    const bool ok = r < rows;
+    cp_async16(Qs + r * D + 4 * (c ^ ((r >> 3) & 7)),
+               ok ? qp + int64_t(q0 + r) * p.q_ss + c * 4 : qp, ok);
+  }
+  issue(0);
+  cp_async_commit();
+
+  float4 acc[R][CV];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < CV; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float m[R], l[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = MASKED;
+    l[i] = 0.f;
+  }
+
+  for (int t = 0; t < kr.nt; ++t) {
+    const int k0 = (kr.t0 + t) * BK;
+    const bool skip = rows_skip_tile(p, wlo, whi, k0, BK);
+    float s[R][CK];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
+
+#pragma unroll 1
+    for (int part = 0; part < 4; ++part) {
+      const int i = 4 * t + part;
+      cp_async_wait<0>();
+      __syncthreads();  // load i landed; the other slot is no longer read
+      if (i + 1 < 4 * kr.nt) issue(i + 1);
+      cp_async_commit();
+      if (skip) continue;
+      const float* sl = slots + (part & 1) * SLOT;
+
+      if (part < 2) {
+        // S += Q K^T over this half of d: per step of 4 along d, 4 float4
+        // of K and 8 of Q (16 and 2 distinct addresses in the warp) for
+        // 128 FMAs
+#pragma unroll 4
+        for (int d4 = 0; d4 < DH / 4; ++d4) {
+          float4 kb[CK];
+#pragma unroll
+          for (int j = 0; j < CK; ++j)
+            kb[j] = *reinterpret_cast<const float4*>(
+                sl + (tx + 16 * j) * DH + 4 * (d4 ^ kc));
+          const int qd = (part * (DH / 4) + d4) ^ qc;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float4 a = *reinterpret_cast<const float4*>(
+                Qs + (8 * ty + r) * D + 4 * qd);
+#pragma unroll
+            for (int j = 0; j < CK; ++j) {
+              s[r][j] = fmaf(a.x, kb[j].x, s[r][j]);
+              s[r][j] = fmaf(a.y, kb[j].y, s[r][j]);
+              s[r][j] = fmaf(a.z, kb[j].z, s[r][j]);
+              s[r][j] = fmaf(a.w, kb[j].w, s[r][j]);
+            }
+          }
+        }
+      }
+
+      if (part == 1) {
+        // online softmax in registers, in log2 units; the 16 threads of a
+        // row are a half-warp.  Only tiles that hold a masked or ragged
+        // pair for the warp's rows compute masks.  P goes to shared memory.
+        // l holds this thread's share of each row's normalizer; the 16
+        // shares are summed once, at the end
+        const bool masked = tile_masked(p, wlo, whi, k0, BK);
+        float alpha[R];
+        bool same = true;  // no row's max moved: O needs no rescale
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float mx;
+          if (masked) {
+#pragma unroll
+            for (int j = 0; j < CK; ++j)
+              s[r][j] = masked_logit_sel(p, s[r][j], scale2, q0 + 8 * ty + r,
+                                         k0 + tx + 16 * j);
+            mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+          } else {
+            mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3])) *
+                 scale2;
+          }
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          mx = fmaxf(mx, m[r]);
+          alpha[r] = hopper::ex2(m[r] - mx);
+          same &= alpha[r] == 1.f;
+          m[r] = mx;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < CK; ++j) {
+            const float pr =
+                hopper::ex2(masked ? s[r][j] - mx : fmaf(s[r][j], scale2, -mx));
+            const int key = tx + 16 * j;
+            Ps[(8 * ty + r) * BK + 4 * ((key >> 2) ^ pc) + (key & 3)] = pr;
+            sum += pr;
+          }
+          l[r] = l[r] * alpha[r] + sum;
+        }
+        if (!__all_sync(0xffffffffu, same)) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int j = 0; j < CV; ++j) {
+              acc[r][j].x *= alpha[r];
+              acc[r][j].y *= alpha[r];
+              acc[r][j].z *= alpha[r];
+              acc[r][j].w *= alpha[r];
+            }
+        }
+      }
+
+      if (part >= 2) {
+        // O += P V over this half of the keys: per 4 keys, 8 float4 of P
+        // and 8 of V for 256 FMAs
+        const int c0 = (part - 2) * (KH / 4);
+#pragma unroll 2
+        for (int c = 0; c < KH / 4; ++c) {
+          float4 pr[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            pr[r] = *reinterpret_cast<const float4*>(
+                Ps + (8 * ty + r) * BK + 4 * ((c0 + c) ^ pc));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float4 vv[CV];
+#pragma unroll
+            for (int j = 0; j < CV; ++j)
+              vv[j] = *reinterpret_cast<const float4*>(
+                  sl + (4 * c + kk) * DV + 4 * tx + 64 * j);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float pk = kk == 0   ? pr[r].x
+                               : kk == 1 ? pr[r].y
+                               : kk == 2 ? pr[r].z
+                                         : pr[r].w;
+#pragma unroll
+              for (int j = 0; j < CV; ++j) {
+                acc[r][j].x = fmaf(pk, vv[j].x, acc[r][j].x);
+                acc[r][j].y = fmaf(pk, vv[j].y, acc[r][j].y);
+                acc[r][j].z = fmaf(pk, vv[j].z, acc[r][j].z);
+                acc[r][j].w = fmaf(pk, vv[j].w, acc[r][j].w);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+    const int row = 8 * ty + r;
+    if (row < rows) {
+      const float inv = 1.f / ((l[r] == 0.f) ? 1.f : l[r]);
+      float* orow = op + int64_t(q0 + row) * p.o_ss;
+#pragma unroll
+      for (int j = 0; j < CV; ++j)
+        *reinterpret_cast<float4*>(orow + 4 * tx + 64 * j) =
+            make_float4(acc[r][j].x * inv, acc[r][j].y * inv,
+                        acc[r][j].z * inv, acc[r][j].w * inv);
+    }
+  }
+}
+
+// ------------------------------------------------------------ MLA bf16 ---
+
+// DeepSeek-V2's MLA pair in bf16 on wgmma: a persistent block of two
+// consumer warpgroups, 64 query rows each, and a producer warpgroup whose
+// first thread keeps TMA loads in flight.  The block walks one work item
+// (query tile, head, batch) a round (work_item); Q is double buffered and
+// the K / V ring runs on across items, so the next item's loads overlap
+// this one's products and epilogue.
+struct MlaBf16 {
+  static constexpr int WGS = 2;  // consumer warpgroups, 64 query rows each
+  static constexpr int D = 192, DV = 128, BQ = 64 * WGS, BK = 64;
+  // a producer warpgroup (one thread issues the loads) after the consumers
+  static constexpr int CONSUMERS = 128 * WGS, THREADS = CONSUMERS + 128;
+  // registers a thread: the producer's 40 leave the consumers 232
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS <= 65536,
+                "registers");
+  static constexpr int STAGES = 2;  // depth of the K / V ring
+  // 128-byte column slabs: Q 3 of 128 x 64, a K stage 3 of 64 x 64, a V
+  // stage 2 of 64 x 64
+  static constexpr int Q_SLAB = BQ * 64 * 2, KV_SLAB = BK * 64 * 2;
+  static constexpr int Q_BYTES = 3 * Q_SLAB;   // 48 KB
+  static constexpr int K_BYTES = 3 * KV_SLAB;  // 24 KB
+  static constexpr int V_BYTES = 2 * KV_SLAB;  // 16 KB
+  static constexpr int TILES = 2 * Q_BYTES + STAGES * (K_BYTES + V_BYTES);
+  // tiles (176 KB at 2 stages), the mbarriers, and slack to align the
+  // tiles to 1024 B
+  static constexpr size_t SMEM = 1024 + TILES + (4 + 4 * STAGES) * 8;
+};
+
+struct MlaBf16Args {
+  CUtensorMap q, k, v;  // (D or DV, S, heads, B) bf16, 128-byte swizzle
+  Params p;
+};
+
+// Work item `i` (< nq H B) of the MLA bf16 kernel: the query tiles of one
+// head are neighbours, heaviest first under a causal mask.  Round k gives
+// block c item k G + (c + k) % G (G blocks), so the blocks of a round hold
+// G neighbouring items (few heads: their K and V are read from memory once
+// and from L2 after) and each block's items cycle through the tiles.
+__device__ __forceinline__ int round_item(int k) {
+  return k * gridDim.x + (blockIdx.x + k) % gridDim.x;
+}
+__device__ __forceinline__ BlockIndex work_item(const Params& p, int nq,
+                                                int i) {
+  const int bh = i / nq, t = i % nq;
+  return {p.causal ? nq - 1 - t : t, bh % p.H, bh / p.H};
+}
+
+__global__ void __launch_bounds__(MlaBf16::THREADS, 1)
+    flash_mla_bf16_kernel(const __grid_constant__ MlaBf16Args args) {
+  constexpr int BQ = MlaBf16::BQ, BK = MlaBf16::BK, DV = MlaBf16::DV;
+  constexpr int Q_SLAB = MlaBf16::Q_SLAB, KV_SLAB = MlaBf16::KV_SLAB;
+  constexpr int NS = MlaBf16::STAGES;
+  const Params& p = args.p;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = base;                                     // 2 buffers
+  unsigned char* Ks = Qs + 2 * MlaBf16::Q_BYTES;                // NS stages
+  unsigned char* Vs = Ks + NS * MlaBf16::K_BYTES;               // NS stages
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(base + MlaBf16::TILES);
+  uint64_t* empty_q = full_q + 2;   // [2]: every consumer warp is done
+  uint64_t* full_k = empty_q + 2;   // [NS]: K of the stage has landed
+  uint64_t* full_v = full_k + NS;   // [NS]
+  uint64_t* empty_k = full_v + NS;  // [NS]
+  uint64_t* empty_v = empty_k + NS;  // [NS]
+
+  const int nq = (p.Sq + BQ - 1) / BQ, items = nq * p.H * p.B;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr uint32_t CONSUMER_WARPS = MlaBf16::CONSUMERS / 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full_q + i, 1);
+      mbar_init(empty_q + i, CONSUMER_WARPS);
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty_k + s, CONSUMER_WARPS);
+      mbar_init(empty_v + s, CONSUMER_WARPS);
+    }
+    hopper::fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= MlaBf16::CONSUMERS) {
+    // producer: one thread issues every load; a buffer is refilled once
+    // all 8 consumer warps have released it
+    hopper::setmaxnreg_dec<MlaBf16::PRODUCER_REGS>();
+    if (threadIdx.x == MlaBf16::CONSUMERS) {
+      hopper::prefetch_tensormap(&args.q);
+      hopper::prefetch_tensormap(&args.k);
+      hopper::prefetch_tensormap(&args.v);
+      int tg = 0;  // key tiles loaded so far, across items
+      for (int j = 0, i = round_item(0); i < items; i = round_item(++j)) {
+        const BlockIndex w = work_item(p, nq, i);
+        const int q0 = w.qt * BQ, kvh = w.h / (p.H / p.KH);
+        const KeyRange kr = key_range<BK>(p, q0, min(BQ, p.Sq - q0));
+        const int qb = j & 1;
+        mbar_wait(empty_q + qb, ((j >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(full_q + qb, MlaBf16::Q_BYTES);
+        for (int c = 0; c < 3; ++c)
+          tma_load_4d(Qs + qb * MlaBf16::Q_BYTES + c * Q_SLAB, &args.q,
+                      full_q + qb, 64 * c, q0, w.h, w.b);
+        for (int t = 0; t < kr.nt; ++t, ++tg) {
+          const int s = tg % NS, k0 = (kr.t0 + t) * BK;
+          const uint32_t par = ((tg / NS) & 1) ^ 1;
+          mbar_wait(empty_k + s, par);
+          mbar_arrive_expect_tx(full_k + s, MlaBf16::K_BYTES);
+          for (int c = 0; c < 3; ++c)
+            tma_load_4d(Ks + s * MlaBf16::K_BYTES + c * KV_SLAB, &args.k,
+                        full_k + s, 64 * c, k0, kvh, w.b);
+          mbar_wait(empty_v + s, par);
+          mbar_arrive_expect_tx(full_v + s, MlaBf16::V_BYTES);
+          for (int c = 0; c < 2; ++c)
+            tma_load_4d(Vs + s * MlaBf16::V_BYTES + c * KV_SLAB, &args.v,
+                        full_v + s, 64 * c, k0, kvh, w.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of a tile, its
+  // warp w rows 16 w .. 16 w + 15 of those; g = lane / 4 and c4 = lane % 4
+  // place a thread in the m16n8 fragments
+  hopper::setmaxnreg_inc<MlaBf16::CONSUMER_REGS>();
+  const int wg = warp / 4, w = warp % 4;
+  const int g = lane / 4, c4 = lane % 4;
+  const float scale2 = p.scale * LOG2E;
+  int tg = 0;  // key tiles consumed so far, across items
+  for (int j = 0, i = round_item(0); i < items; i = round_item(++j)) {
+    const BlockIndex item = work_item(p, nq, i);
+    const int q0 = item.qt * BQ, rows = min(BQ, p.Sq - q0);
+    const KeyRange kr = key_range<BK>(p, q0, rows);
+    const int wrow = 64 * wg + 16 * w;
+    const int qb = j & 1;
+
+    float o[DV / 2];
+#pragma unroll
+    for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
+    // rows g and g + 8 of the warp's 16: running max (log2 units) and this
+    // thread's share of the normalizer
+    float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
+    mbar_wait(full_q + qb, (j >> 1) & 1);
+    // Q's A fragments of the 12 k-steps stay in registers for the item, so
+    // that S reads only K from shared memory: lanes 0-15 give rows 0-15 of
+    // the warp's 16 at the k-step's first 8 columns, lanes 16-31 the next
+    // 8, in the 128-byte swizzle (chunk c of row r at c ^ (r & 7))
+    uint32_t qf[12][4];
+#pragma unroll
+    for (int kk = 0; kk < 12; ++kk) {
+      const int row = wrow + lane % 16, chunk = 2 * (kk % 4) + lane / 16;
+      hopper::ldmatrix_x4(qf[kk], Qs + qb * MlaBf16::Q_BYTES +
+                                      (kk / 4) * Q_SLAB + row * 128 +
+                                      16 * (chunk ^ (row & 7)));
+    }
+    for (int t = 0; t < kr.nt; ++t, ++tg) {
+      const int s = tg % NS, k0 = (kr.t0 + t) * BK;
+      const uint32_t par = (tg / NS) & 1;
+      const bool skip = rows_skip_tile(p, q0 + 64 * wg, q0 + 64 * wg + 63, k0,
+                                       BK);
+      float sacc[BK / 2], alpha[2];
+      uint32_t pa[BK / 16][4];
+
+      mbar_wait(full_k + s, par);
+      if (!skip) {
+        // S = Q K^T: 12 k-steps of 16 along d, 4 in each 128-byte slab of
+        // K; descriptors count 16-byte units: k-step kk starts kk % 4 times
+        // 32 bytes into slab kk / 4
+        const uint64_t dk =
+            wgmma_desc_sw128(Ks + s * MlaBf16::K_BYTES, 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 12; ++kk)
+          hopper::wgmma_m64n64k16_rs(
+              sacc, qf[kk], dk + (kk / 4) * (KV_SLAB / 16) + 2 * (kk % 4),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        hopper::fence_regs(sacc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_k + s);
+
+      if (!skip) {
+        // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3);
+        // sacc[4 jt + e] is column 8 jt + 2 c4 + e % 2
+        const bool masked = tile_masked(p, q0 + wrow, q0 + wrow + 15, k0, BK);
+        float mx[2];
+        if (masked) {
+#pragma unroll
+          for (int e = 0; e < BK / 2; ++e)
+            sacc[e] = masked_logit_sel(
+                p, sacc[e], scale2, q0 + wrow + g + 8 * ((e % 4) / 2),
+                k0 + 8 * (e / 4) + 2 * c4 + e % 2);
+        }
+        mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e)
+          mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], sacc[e]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (!masked) mx[r] *= scale2;  // unmasked logits are unscaled yet
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          mx[r] = fmaxf(mx[r], m[r]);
+          alpha[r] = hopper::ex2(m[r] - mx[r]);
+          m[r] = mx[r];
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          float& x = sacc[e];
+          x = hopper::ex2(masked ? x - m[(e % 4) / 2]
+                                 : fmaf(x, scale2, -m[(e % 4) / 2]));
+          l[(e % 4) / 2] += x;
+        }
+        if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+          for (int jt = 0; jt < DV / 8; ++jt) {
+            o[4 * jt] *= alpha[0];
+            o[4 * jt + 1] *= alpha[0];
+            o[4 * jt + 2] *= alpha[1];
+            o[4 * jt + 3] *= alpha[1];
+          }
+        }
+        // P in bf16 as the A fragments of P V, 16 keys a k-step
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const float* s0 = sacc + 8 * kk;
+          pa[kk][0] = hopper::pack_bf16(s0[0], s0[1]);
+          pa[kk][1] = hopper::pack_bf16(s0[2], s0[3]);
+          pa[kk][2] = hopper::pack_bf16(s0[4], s0[5]);
+          pa[kk][3] = hopper::pack_bf16(s0[6], s0[7]);
+        }
+      }
+
+      mbar_wait(full_v + s, par);
+      if (!skip) {
+        // O += P V: V is N-major (its 128 columns contiguous), two 64-column
+        // slabs 8 KB apart, 8-key groups 1024 B apart, 16 keys a k-step
+        const uint64_t dv =
+            wgmma_desc_sw128(Vs + s * MlaBf16::V_BYTES, KV_SLAB, 1024);
+        hopper::fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hopper::wgmma_m64n128k16_rs_tn(o, pa[kk],
+                                         dv + kk * (16 * 128 / 16));
+        wgmma_commit();
+        wgmma_wait<0>();
+        hopper::fence_regs(o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_v + s);
+    }
+    // epilogue: O / l in bf16, staged in this warp's 16 rows of the item's
+    // Q buffer (which no product reads any more): columns 0..63 in slab 0,
+    // 64..127 in slab 1, 16-byte chunks XOR-ed with the row, so that the
+    // stores to memory are whole 256-byte rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / ((l[r] == 0.f) ? 1.f : l[r]);  // the reciprocal from here
+    }
+    unsigned char* stage = Qs + qb * MlaBf16::Q_BYTES + wrow * 128;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+#pragma unroll
+      for (int jt = 0; jt < DV / 8; ++jt)
+        *reinterpret_cast<__nv_bfloat162*>(
+            stage + (jt / 8) * Q_SLAB + row * 128 +
+            16 * ((jt % 8) ^ (row & 7)) + 4 * c4) =
+            __floats2bfloat162_rn(o[4 * jt + 2 * r] * l[r],
+                                  o[4 * jt + 2 * r + 1] * l[r]);
+    }
+    __syncwarp();
+    bf16* op = static_cast<bf16*>(p.o) + item.b * p.o_sb + item.h * p.o_sh;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {  // two rows a round, 16 bytes a lane
+      const int row = 2 * k + lane / 16, c = lane % 16;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          stage + (c / 8) * Q_SLAB + row * 128 + 16 * ((c % 8) ^ (row & 7)));
+      if (wrow + row < rows)
+        *reinterpret_cast<uint4*>(op + int64_t(q0 + wrow + row) * p.o_ss +
+                                  8 * c) = v;
+    }
+    hopper::fence_proxy_async();  // before TMA loads the next Q here
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_q + qb);
+  }
+}
+
 template <typename K>
 cudaError_t launch_kernel(K kernel, const Params& p, int bq, int threads,
                           size_t smem, bool& ready, cudaStream_t stream) {
@@ -608,6 +1253,84 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t s) {
                        bf16_smem_bytes<D, DV, BK>(), ready, s);
 }
 
+cudaError_t launch_mla_f32(const Params& p, cudaStream_t s) {
+  static bool ready = false;
+  return launch_kernel(flash_mla_f32_kernel, p, MlaF32::BQ, MlaF32::THREADS,
+                       MlaF32::SMEM, ready, s);
+}
+
+// cuTensorMapEncodeTiled (libcuda), looked up at run time through the
+// runtime's entry-point query, so that the library links only cudart.
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-d bf16 map (width, rows, heads, batch) over `base` with element
+// strides ss, sh, sb, boxes of 64 x box_rows in the 128-byte swizzle.  The
+// stride of a dim of extent 1 is never used; it is replaced by a natural
+// one, since the encoder wants every stride a positive multiple of 16 B.
+bool encode_bf16_map(CUtensorMap* map, EncodeTiled encode, const void* base,
+                     int width, int rows, int heads, int batch, int64_t ss,
+                     int64_t sh, int64_t sb, int box_rows) {
+  cuuint64_t st[3] = {cuuint64_t(2 * ss), cuuint64_t(2 * sh),
+                      cuuint64_t(2 * sb)};
+  if (rows == 1) st[0] = (2 * width + 15) / 16 * 16;
+  if (heads == 1) st[1] = st[0] * rows;
+  if (batch == 1)
+    st[2] = st[1] * heads > st[0] * rows ? st[1] * heads : st[0] * rows;
+  const cuuint64_t dims[4] = {cuuint64_t(width), cuuint64_t(rows),
+                              cuuint64_t(heads), cuuint64_t(batch)};
+  const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, st, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_mla_bf16(const Params& p, cudaStream_t s) {
+  static bool ready = false;
+  // the epilogue stores whole 16-byte chunks of O's rows
+  if (p.o_ss % 8 != 0 || reinterpret_cast<uintptr_t>(p.o) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  MlaBf16Args a;
+  a.p = p;
+  if (!encode_bf16_map(&a.q, encode, p.q, MlaBf16::D, p.Sq, p.H, p.B,
+                       p.q_ss, p.q_sh, p.q_sb, MlaBf16::BQ) ||
+      !encode_bf16_map(&a.k, encode, p.k, MlaBf16::D, p.Sk, p.KH, p.B,
+                       p.k_ss, p.k_sh, p.k_sb, MlaBf16::BK) ||
+      !encode_bf16_map(&a.v, encode, p.v, MlaBf16::DV, p.Sk, p.KH, p.B,
+                       p.v_ss, p.v_sh, p.v_sb, MlaBf16::BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      hopper::set_smem_once(flash_mla_bf16_kernel, MlaBf16::SMEM, ready);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // one persistent block an SM, at most one a work item
+  const int64_t items =
+      int64_t(p.Sq + MlaBf16::BQ - 1) / MlaBf16::BQ * p.H * p.B;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const unsigned blocks = unsigned(items < sms ? items : sms);
+  flash_mla_bf16_kernel<<<blocks, MlaBf16::THREADS, MlaBf16::SMEM, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D is the head dim of q and k, Dv that
@@ -631,7 +1354,7 @@ extern "C" int flash_attention_fwd(
   else if (dtype == 0 && D == 128 && Dv == 128)
     err = launch_f32<128, 128>(p, s);
   else if (dtype == 0 && D == 192 && Dv == 128)
-    err = launch_f32<192, 128>(p, s);
+    err = launch_mla_f32(p, s);
   else if (dtype == 0 && D == 256 && Dv == 256)
     err = launch_f32<256, 256>(p, s);
   else if (dtype == 1 && D == 64 && Dv == 64)
@@ -639,7 +1362,7 @@ extern "C" int flash_attention_fwd(
   else if (dtype == 1 && D == 128 && Dv == 128)
     err = launch_bf16<128, 128, 64>(p, s);
   else if (dtype == 1 && D == 192 && Dv == 128)
-    err = launch_bf16<192, 128, 64>(p, s);
+    err = launch_mla_bf16(p, s);
   else if (dtype == 1 && D == 256 && Dv == 256)
     err = launch_bf16<256, 256, 32>(p, s);
   return int(err);

@@ -1,8 +1,21 @@
-// Device helpers shared by the port's kernels: an fp32 store in either
-// element type, 16-byte asynchronous copies (cp.async), ldmatrix, and the
-// bf16 tensor-core product mma.sync m16n8k16 with fp32 accumulation (all
-// sm_80+ instructions that Hopper keeps); and the one-time setting of a
-// kernel's shared-memory attributes.
+// Device helpers shared by the port's kernels.
+//
+// sm_80+ instructions that Hopper keeps: an fp32 store in either element
+// type, 16-byte asynchronous copies (cp.async), ldmatrix, the bf16
+// tensor-core product mma.sync m16n8k16 with fp32 accumulation, and 2^x on
+// the MUFU unit; and the one-time setting of a kernel's shared-memory
+// attributes.
+//
+// sm_90a only (the `a` target: wgmma exists nowhere else), used by the MLA
+// bf16 attention kernel: mbarriers (init, arrive, arrive with an expected
+// transaction count, parity wait), TMA tile loads (cp.async.bulk.tensor,
+// 4-d, completed on an mbarrier), tensor-map prefetch and the proxy fence
+// before reuse of TMA-written bytes, setmaxnreg, and the warpgroup
+// products
+// wgmma.mma_async m64n64k16 (A from registers, B from shared memory
+// K-major) and m64n128k16 (A from registers, B from shared memory N-major)
+// with their fence / commit / wait and 128-byte-swizzle matrix
+// descriptors.
 
 #pragma once
 
@@ -76,6 +89,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 2^x on the MUFU.EX2 unit (about 2 ulp), denormal results flushed to 0:
+// softmax weights, where those are 0 anyway.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Two floats rounded to bf16 in one register, lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -98,5 +119,180 @@ cudaError_t set_smem_once(K kernel, size_t smem, bool& ready) {
   ready = err == cudaSuccess;
   return err;
 }
+
+// ------------------------------------------------------- sm_90a only ---
+#if defined(__CUDA_ARCH__) && !defined(__CUDA_ARCH_FEAT_SM90_ALL)
+#error "hopper.cuh: build for sm_90a (-gencode arch=compute_90a,code=sm_90a)"
+#endif
+
+// mbarrier in shared memory: `count` arrivals complete a phase.  Call from
+// one thread, then fence_mbarrier_init() and a block barrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// One arrival that also expects `bytes` more of asynchronous transactions
+// (the TMA loads that complete on this barrier) in the current phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait until the phase of parity `parity` has completed (a fresh barrier is
+// in phase 0, so a wait on parity 1 returns at once).  After 2^30 failed
+// tries (seconds) it traps: a broken protocol fails the launch rather than
+// hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 30)) __trap();
+  }
+}
+
+// Bring a tensor map (in parameter, constant or global memory) into the
+// descriptor cache ahead of its first TMA load.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// TMA: the box at coordinates (c0 innermost .. c3) of the 4-d tensor map
+// `map` (a CUtensorMap in parameter, constant or global memory) into
+// shared memory at `dst`, completing `bytes` of the transaction count of
+// `bar`.  Elements outside the tensor are zero-filled and still counted.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a tile in the 128-byte swizzle layout (what a
+// TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: 128-byte rows, 16-byte
+// chunks XOR-ed with the row's low 3 bits, 1024-byte aligned atoms of 8
+// rows).  lbo / sbo in bytes: for a K-major operand sbo is the stride of
+// 8-row groups and lbo is unused; for an MN-major one lbo is the stride of
+// 64-element column blocks and sbo that of 8-row (K) groups.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile,
+                                                     uint32_t lbo,
+                                                     uint32_t sbo) {
+  return uint64_t((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (uint64_t(lbo >> 4) << 16) | (uint64_t(sbo >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+// Hand registers between warpgroups: every thread of the warpgroup runs it
+// at once, in code that never rejoins the other warpgroups' (a kernel-long
+// if / else), and the block's total must fit the register file.
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Order this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones (TMA loads into the same bytes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin accumulator registers at this point of the program: reads after a
+// wgmma_wait() and writes before a wgmma_fence() stay on their side.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define HOPPER_D8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64, fp32; d = 0 first when !accumulate) += a b^T: a (64 x 16
+// bf16) in registers, the m16n8k16 A fragment of the thread's warp's 16
+// rows (what ldmatrix_x4 gives), b (64 x 16 bf16) K-major in shared
+// memory.  Thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
+// + 8 ((i / 2) % 2), columns 8 (i / 4) + 2 (t % 4) + i % 2 of d[i]: the
+// mma.sync m16n8 layout, repeated over the 8-column tiles.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) += a (64 x 16 bf16 in registers, the m16n8k16 A
+// fragment of the thread's warp's 16 rows) b, with b (16 x 128 bf16) in
+// shared memory N-major (transposed: the 128 columns contiguous).
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tn(float (&d)[64],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
+        HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef HOPPER_D8
 
 }  // namespace hopper

@@ -14,8 +14,10 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import policy as jax_policy  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.ref import flash_attention_ref as jax_ref  # noqa: E402
+from repro.models.layers import sdpa as jax_sdpa  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, policy  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
@@ -83,6 +85,75 @@ def test_flash_attention_ref_matches_jax(dtype, b, h, kh, sq, sk, d, causal,
         _np(fa.flash_attention(tq, tk, tv, causal=causal, window=window)),
         _np(out))
     assert fa.launches == 0
+
+
+# MLA's pair, q and k at 192 with v at 128: the port's plain version, which
+# the card holds both MLA kernels to, against the JAX model's plain ``sdpa``
+# (what the reference runs for MLA: its Pallas kernel sizes v by q's D).
+# (dtype, B, H, K, Sq, Sk, causal, window)
+MLA_CASES = [
+    ("float32", 1, 4, 4, 128, 128, True, None),     # causal, no GQA
+    ("float32", 1, 4, 2, 96, 160, True, None),      # ragged, Sq < Sk
+    ("float32", 1, 4, 2, 160, 96, True, None),      # ragged, Sq > Sk
+    ("float32", 1, 4, 2, 100, 77, False, None),     # non-causal
+    ("float32", 1, 2, 1, 256, 128, True, 16),       # fully-masked rows
+    ("bfloat16", 1, 4, 4, 128, 128, True, None),
+    ("bfloat16", 1, 4, 2, 160, 96, True, None),
+    ("bfloat16", 1, 2, 1, 256, 128, True, 16),
+]
+
+
+@pytest.mark.parametrize("dtype,b,h,kh,sq,sk,causal,window", MLA_CASES)
+def test_mla_ref_matches_jax_sdpa(dtype, b, h, kh, sq, sk, causal, window):
+    rng = np.random.default_rng(5)
+    # the model's layout, (B, S, heads, head dim)
+    arrs = [rng.standard_normal(shape, dtype=np.float32) for shape in
+            ((b, sq, h, 192), (b, sk, kh, 192), (b, sk, kh, 128))]
+    (tq, tk, tv), (jq, jk, jv) = _both(arrs, dtype)
+    was = jax_policy.get_policy()
+    jax_policy.set_policy("ref")
+    try:
+        want = jax_sdpa(jq, jk, jv, causal=causal, window=window)
+    finally:
+        jax_policy.set_policy(was)
+    out = flash_attention_ref(tq.transpose(1, 2), tk.transpose(1, 2),
+                              tv.transpose(1, 2), causal=causal,
+                              window=window)
+    assert out.shape == (b, h, sq, 128) and out.dtype == TORCH_DT[dtype]
+    np.testing.assert_allclose(_np(out.transpose(1, 2)), _np(want),
+                               **TOL[dtype])
+    if window is not None and sq > sk:
+        # rows 143.. see no key: both give the mean of v over all keys
+        np.testing.assert_allclose(_np(out[0, :, -1]),
+                                   _np(tv[0, :, 0].float().mean(0))[None]
+                                   .repeat(h, 0), **TOL[dtype])
+    np.testing.assert_array_equal(
+        _np(fa.flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                               tv.transpose(1, 2), causal=causal,
+                               window=window)), _np(out))
+    assert fa.launches == 0
+
+
+def test_rows_aligned_copies_what_the_kernels_cannot_address():
+    """The wrapper hands the kernels every tensor as it is when its rows
+    start on 16 bytes and its strides are positive, and a contiguous copy
+    otherwise: a broadcast (stride-0) head dim, which the MLA bf16 kernel's
+    TMA maps cannot describe, or a row start off 16 bytes."""
+    kv = torch.randn((2, 64, 3, 320), dtype=torch.bfloat16)
+    v = kv[..., 192:].transpose(1, 2)  # the model's column view of v
+    assert fa._rows_aligned(v) is v
+    one = torch.randn((2, 64, 1, 192)).transpose(1, 2)  # extent-1 heads
+    assert fa._rows_aligned(one) is one
+    wide = one.expand(2, 4, 64, 192)    # a broadcast head dim
+    got = fa._rows_aligned(wide)
+    assert got.stride(1) > 0 and got.is_contiguous()
+    torch.testing.assert_close(got, wide, rtol=0, atol=0)
+    odd = torch.randn((1, 2, 64, 200))[..., 4:196]  # rows start at 16 B + 16
+    assert fa._rows_aligned(odd) is odd
+    off = torch.randn((1, 2, 64, 200))[..., 2:194]  # 8 bytes off
+    got = fa._rows_aligned(off)
+    assert got is not off and got.data_ptr() % 16 == 0
+    torch.testing.assert_close(got, off, rtol=0, atol=0)
 
 
 def test_fully_masked_rows_average_v():

@@ -119,6 +119,47 @@ def test_flash_attention_mla_head_dims(cuda, dtype, b, h, s, atol):
         fa.flash_attention(q, k, kv[..., :192].transpose(1, 2))
 
 
+# Each branch of the two MLA kernels (fp32: 128 query rows x 64 keys a
+# tile; bf16: wgmma on TMA tiles of 128 rows x 64 keys), in both types: Sq
+# and Sk off the tiles, Sq < Sk and Sq > Sk, rows that see no key under a
+# window (rows 143.. get the mean of v), non-causal, a grid smaller than the
+# card's 132 SMs (batch 1, 2 heads), all in the model's layout: q a
+# transposed view, k and v column views of one (B, Sk, K, 320) tensor.
+# (B, H, K, Sq, Sk, causal, window)
+MLA_EDGE_CASES = [
+    (1, 4, 2, 300, 200, True, None),
+    (1, 2, 2, 1, 77, True, None),
+    (1, 4, 2, 100, 333, True, None),
+    (1, 4, 2, 333, 100, True, None),
+    (1, 2, 1, 256, 128, True, 16),
+    (1, 4, 2, 300, 333, False, None),
+    (1, 2, 2, 512, 512, True, None),
+]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,kh,sq,sk,causal,window", MLA_EDGE_CASES)
+def test_flash_attention_mla_edges(cuda, dtype, atol, b, h, kh, sq, sk,
+                                   causal, window):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((b, sq, h, 192), generator=g, device=cuda).to(dtype)
+    kv = torch.randn((b, sk, kh, 320), generator=g, device=cuda).to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in (q, kv[..., :192], kv[..., 192:]))
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == (b, h, sq, 128)
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - want).abs().max().item() <= atol
+    if window is not None and sq > sk:
+        mean = v.float().mean(2).repeat_interleave(h // kh, 1)
+        assert (out[:, :, -1].float() - mean).abs().max().item() <= atol
+
+
 # RecurrentGemma-9B's local attention: head dim 256, MQA, window 2048 (which
 # never bites at S = 512) and 128 (which does)
 @pytest.mark.parametrize("dtype,window,s,atol", [
