@@ -18,15 +18,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bf16 inputs, output for output).  MLA's pair has a kernel of its own in
    each type (fp32 register-blocked on the CUDA cores, bf16 on wgmma fed by
    TMA), each checked at every ragged, windowed and small-grid case of
-   ``attention_cases``.  At the main shapes it times the
+   ``attention_cases``; Whisper large-v3's head dim 64 is timed in both
+   types.  The SSD scan's bf16 design (tensor cores) is held at every bf16
+   case, with ptxas's registers and spills beside its time and the worst
+   error of the bf16 cases.  At the main shapes it times the
    kernel's wrapper, the kernels alone where the wrapper prepares their
    inputs (the SSD scan), the plain version, the bound, and one library
    call where one computes the same function
    (``scaled_dot_product_attention``, a yardstick the port never calls).
    Times are device times (calls captured in a CUDA graph and replayed);
-   the wrapper's time issued from Python call by call stands beside.  The
-   RG-LRU wrapper must run exactly one CUDA kernel a call (``torch.profiler``)
-   and its kernel must build without spills; so must both MLA kernels.
+   the wrapper's time issued from Python call by call stands beside.  At
+   each main shape the CUDA kernels a call are counted (``torch.profiler``)
+   and held: one a flash-attention or RG-LRU wrapper call, and of the SSD
+   kernel alone three in fp32 and two in bf16; these measured counts are
+   the ``kernels`` line's ``cuda_launches_per_call``.  The RG-LRU kernel
+   must build without spills; so must both MLA kernels.
 4. serve: full-width, full-depth Qwen2-1.5B (28 layers), then Mamba2-370M
    (48 layers) and RecurrentGemma-9B (38 layers), each fp32 with random
    weights from seed 0 and freed before the next, each answering 4 prompts
@@ -36,7 +42,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    48 for Mamba2, RG-LRU 26 and flash 12 for RecurrentGemma) and decode
    none, the teacher-forced decode logits must agree with prefill's, and
    prefill must agree with the plain path (policy ``ref``) on the card.
-   Then "where the time goes" for each model.
+   Then "where the time goes" for each model.  Then the same prompts
+   prefilled in bf16 through ``build_prefill_step``, on the model's
+   weights cast to bf16 (``A_log``, ``dt_bias`` and ``lam`` kept fp32):
+   flash 28 / 0 / 12, SSD 0 / 48 / 0 and RG-LRU 0 / 0 / 26 launches and
+   none plain, the last position's logits no farther from the fp32
+   prefill's than ``BF16_VS_FP32_RATIO`` times the distance of the bf16
+   prefill through the plain versions, and against that plain bf16
+   prefill (recorded); Mamba2's every SSD call of one more bf16 prefill
+   against the plain version on that call's own inputs, at phase 3's
+   tolerance; the prefill's time, peak memory, device busy share and the
+   SSD scan's share of its device time.
 5. graph-IR training (``block_program`` -> ``Program.compile_train`` ->
    ``Session.train_step`` -> ``TorchExecutor``): full-width Qwen2-1.5B
    blocks (2 layers, batch 4, seq 512, weights from seed 0 with numpy)
@@ -58,7 +74,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    Llama under tp2 x pp2 with two microbatches (1f1b): B1 once per layer
    per microbatch, and the same agreement with the simulator.
 6. the production trainer (``repro_torch.launch.train``): full-width
-   Qwen2-1.5B cut to 14 of its 28 layers and Mamba2-370M to 12 of its 48,
+   Qwen2-1.5B cut to 7 of its 28 layers and Mamba2-370M to 6 of its 48,
    and RecurrentGemma-9B at full width cut to one (rec, rec, attn)
    superblock (``TRAIN_ARCHS``), each at batch 8, seq
    512, 2 microbatches, remat, AdamW fp32, TF32 off, and freed before the
@@ -103,7 +119,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bitwise against the port's ``SimulatorExecutor``, with the lowering's
    program and channel counts.  (b) Llama-32B blocks at published widths
    (2 layers, one a stage, weights and feeds from seed 0 with numpy)
-   under tp2 x pp2, 4 microbatches of 1 x 512, one 1F1B step's
+   under tp2 x pp2, 2 microbatches of 2 x 512, one 1F1B step's
    ``run_schedule`` through ``TorchExecutor``, ``AsyncExecutor``,
    ``AsyncExecutor(serialize=True)`` and a profiled ``AsyncExecutor``: the
    loss and every gradient shard of every microbatch bitwise equal across
@@ -120,11 +136,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the next: DeepSeek-V2 (2 of 60 layers: the dense layer 0 and one MoE
    layer; MLA) and Grok-1 (1 of 64 MoE layers) on 512-token prompts,
    Qwen2-VL (2 of 80 layers; embedding inputs, a 16 x 16 image grid and
-   text with their M-RoPE ids) on 512, whole Whisper large-v3 (32 encoder
-   and 32 decoder layers over 1500 audio frames) on 384.  Prefill must
-   launch B1 once per decoder self-attention layer (2, 1, 2, 32) and
-   decode none; the teacher-forced decode must agree with prefill (atol
-   2e-3, rtol 1e-3, same argmax).  MoE is served from a copy under
+   text with their M-RoPE ids) on 512, Whisper large-v3 (8 of its 32
+   encoder layers over 1500 audio frames, 8 of its 32 decoder) on 384.
+   Prefill must launch B1 once per decoder self-attention layer (2, 1, 2,
+   8) and decode none; the teacher-forced decode must agree with prefill
+   (atol 2e-3, rtol 1e-3, same argmax).  MoE is served from a copy under
    ``moe.exact`` with the same weights, since at capacity factor 1.25 a
    4-token decode step keeps one assignment an expert; prefill of the
    published config through the kernels must agree with the plain
@@ -149,8 +165,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the port's simulator in every rank; the messages, collectives and
    staged bytes per case.  (b) Phase 5's
    program on 4 ranks through ``api.DistExecutor``, each rank rebuilding
-   phase 5's weights and feeds from seed 0, ``DIST_STEPS`` (2) steps: B1
-   twice a step on every rank (16 in all) at q (2, 6, 512, 128), the
+   phase 5's weights and feeds from seed 0, ``DIST_STEPS`` (1) step: B1
+   twice a step on every rank (8 in all) at q (2, 6, 512, 128), the
    losses within rtol 1e-5 of phase 5's and the weights, m and v after
    the last step within phase 7's limits of phase 5's state after the
    same step (which ``main`` writes to a
@@ -158,7 +174,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bitwise.
    (c) In the same launch, the same blocks under the hsize=2 dp2|tp2
    strategy (``runtime.selftest.hetero_block_strategy``: dp2 on devices
-   0-1, tp2 on 2-3, each on half the batch), 2 steps: the gradient plans
+   0-1, tp2 on 2-3, each on half the batch), ``DIST_STEPS`` steps: the
+   gradient plans
    (a bottom AR, then a top SplitAR), B1 twice a step on every rank at q
    (1, 12, 512, 128) on ranks 0-1 and (2, 6, 512, 128) on ranks 2-3, the
    losses and every part of the state against the box it covers of phase
@@ -169,14 +186,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    dropped: phase 5's blocks under tp2 x pp2 (one layer a stage; the q/k/v
    biases left out, since the graph IR cannot microbatch their lift onto
    the activations; the tied head makes two chunks a device, so the 1F1B
-   timetable is the interleaved one), one step of 4 microbatches of 1 x
+   timetable is the interleaved one), one step of 2 microbatches of 2 x
    512 through ``run_schedule``, fetching the loss and every gradient of
    every microbatch, on ``api.DistAsyncExecutor`` (a real 4-rank pipeline)
    and then on ``api.DistExecutor`` (the microbatches in turn): bitwise
    between the two, within phase 5's limits of the stacked
    ``api.AsyncExecutor`` run of the same program on rank 0's card after
    the rank runs (whether bitwise is recorded), B1 once a microbatch on
-   every rank at q (1, 6, 512, 128); each rank's split (pack, dispatch
+   every rank at q (2, 6, 512, 128); each rank's split (pack, dispatch
    loop, comm into staging and exchanges, fetch), traffic, card and host
    peaks and its ticks' device times, and the overlap 1 - async loop /
    rank executor's loop.  (e) In the same launch, once (d)'s state is
@@ -209,11 +226,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``repro_torch.launch.train`` at published widths (``FAMILY_TRAIN``):
    DeepSeek-V2 cut to its dense layer 0 and one MoE layer of 64 of its
    160 routed experts (``--layers 2 --experts 64``), Grok-1 to one layer
-   of 4 of its 8 experts, Qwen2-VL to 2 layers, Whisper large-v3 whole at
-   384 decoder positions; phase 6's batch 8, 2 microbatches, remat, AdamW
+   of 4 of its 8 experts, Qwen2-VL to 2 layers, Whisper large-v3 to 8 of
+   its 32 encoder and 8 of its 32 decoder layers at 384 decoder positions;
+   phase 6's batch 8, 2 microbatches, remat, AdamW
    fp32, each freed before the next.  (a) ``launch.train.main`` for three
    steps: B1 launched decoder self-attention layers x microbatches x 2 a
-   step (8, 4, 8, 128; Whisper's encoder and cross-attention take the
+   step (8, 4, 8, 32; Whisper's encoder and cross-attention take the
    plain path), losses finite and changing, gradient norms finite; the
    peak, step ms and tok/s.  (b) Two steps from one init through the
    kernels and through the plain versions, phase 6's limits; with MoE each
@@ -254,6 +272,25 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: (atol, rtol) of the scans, as tests/test_kernels.py holds the Pallas
 #: kernels to their oracles
 SSD_TOL = {"float32": (2e-4, 5e-2), "bfloat16": (2e-1, 5e-2)}
+#: each SSD call of phase 4's bf16 Mamba2 prefill against the plain version
+#: on its own inputs, y and the state normwise: bf16's unit roundoff.  y's
+#: own rounding to bf16 is at most 2^-9 an element, P's to bf16 (each term
+#: within 2^-9) averages out over a chunk's terms, and the carried state
+#: and the dt-scaled x are split into bf16 hi + lo (~2^-16)
+SSD_PATH_NORMWISE = 2.0 ** -8
+#: CUDA kernels one call of the SSD kernel alone runs, by type (fp32: chunk
+#: states, state pass, outputs; bf16: chunk states with the carry, outputs)
+SSD_CUDA_LAUNCHES = {"float32": 3, "bfloat16": 2}
+# phase 4's bf16 prefill, the last position's logits normwise: the prefill
+# through the kernels may lie at most BF16_VS_FP32_RATIO times as far from
+# the fp32 prefill on the same weights as the bf16 prefill through the plain
+# versions does.  The two bf16 runs round at other places, and over 28-48
+# layers of random weights they drift apart by bf16's own error (Mamba2-370M
+# on an H100: 5.2e-2 apart, each 6.4-6.5e-2 from fp32), so no flat limit on
+# their own distance both passes them and means much; a right kernel adds
+# nothing to the distance from fp32 (ratios 0.98-1.02 read), a wrong one
+# adds its own error to it
+BF16_VS_FP32_RATIO = 1.2
 RGLRU_TOL = {"float32": (1e-4, 3e-2), "bfloat16": (1e-1, 3e-2)}
 #: the largest share of bf16 RG-LRU outputs that may differ from the plain
 #: version on the same bf16 inputs.  Both round i x to bf16 and scan in
@@ -274,8 +311,11 @@ LOSS_RTOL, GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-6, 2e-4
 #: excepted: their gradient is mathematically zero)
 GRAD_NORM_RTOL = 2e-4
 #: phase 8: full-width Llama-32B blocks under tp2 x pp2 (one layer a
-#: stage), 4 microbatches of 1 x 512 so that 1F1B has a steady state
-PP_LAYERS, PP_BATCH, PP_MICRO = 2, 4, 4
+#: stage), 2 microbatches of 2 x 512: 1F1B's warm-up, a forward and
+#: backward in turn on the last stage, and cool-down.  Each run fetches
+#: every microbatch's 6 GB of gradients to the host, so the count is the
+#: run's host time (at 4 the fetch took 13 s of a 20 s run)
+PP_LAYERS, PP_BATCH, PP_MICRO = 2, 4, 2
 #: phase 8's runs in order: each executor once (the first run pays the
 #: process's first use of each kernel), then one async run under
 #: ``torch.profiler`` and ``torch.cuda.set_sync_debug_mode("warn")``
@@ -284,10 +324,10 @@ PP_RUNS = ("torch", "serialized", "async", "profiled")
 #: published widths: (arch, layers or None for full depth).  RecurrentGemma
 #: keeps one (rec, rec, attn) superblock: its full 10.4 B parameters need
 #: ~167 GB of fp32 params, grads, m and v, more than one 80 GB card.
-#: Qwen2-1.5B keeps 14 of its 28 layers and Mamba2-370M 12 of its 48, to
-#: keep the whole script inside its 1200 s limit (Mamba2's step is bound
-#: by the host's launches, so its depth is the host time it costs)
-TRAIN_ARCHS = (("qwen2-1.5b", 14), ("mamba2-370m", 12),
+#: Qwen2-1.5B keeps 7 of its 28 layers and Mamba2-370M 6 of its 48, to
+#: keep the whole script well inside its 1200 s limit (Mamba2's step is
+#: bound by the host's launches, so its depth is the host time it costs)
+TRAIN_ARCHS = (("qwen2-1.5b", 7), ("mamba2-370m", 6),
                ("recurrentgemma-9b", 3))
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 3
 #: kernels vs plain versions over two steps from one init: the losses'
@@ -326,10 +366,12 @@ ELASTIC_TRACE = [(0, (0, 1, 2, 3)), (1, (0, 1)), (2, (0, 1, 2, 3))]
 #: for full depth, prompt length).  DeepSeek-V2 keeps its dense layer 0 and
 #: one MoE layer, Grok-1 one MoE layer (phase 12's depths: a second MoE
 #: layer repeats the first's code path for ~8 s of cache fill), Qwen2-VL
-#: two layers; Whisper runs whole, its prompt inside the 448 positions of
-#: its decoder
+#: two layers; Whisper 8 of its 32 encoder and 8 of its 32 decoder layers
+#: (``launch.train.cut_depth``: the decoder's depth is its cache fill's
+#: host time, the encoder's most of its training step), its prompt inside
+#: the 448 positions of its decoder
 FAMILIES = (("deepseek-v2-236b", 2, 512), ("grok-1-314b", 1, 512),
-            ("qwen2-vl-72b", 2, 512), ("whisper-large-v3", None, 384))
+            ("qwen2-vl-72b", 2, 512), ("whisper-large-v3", 8, 384))
 #: the largest share of prefill tokens whose MoE routing (an expert of the
 #: top-k, or whether capacity keeps it) may differ between the kernels and
 #: the plain versions: they differ by ~1e-6, which flips a near-tie
@@ -341,11 +383,11 @@ ROUTING_FLIP_MAX = 0.01
 #: a parameter, so one MoE layer at its published expert count does not
 #: fit one 80 GB card for training: DeepSeek-V2 keeps its dense layer 0 and
 #: one MoE layer of 64 of its 160 routed experts, Grok-1 one layer of 4 of
-#: its 8; top-k, d_expert and the shared experts are kept.  Whisper runs
-#: whole at phase 9's 384 positions
+#: its 8; top-k, d_expert and the shared experts are kept.  Whisper keeps
+#: phase 9's depth (``--layers`` cuts both stacks) at its 384 positions
 FAMILY_TRAIN = (("deepseek-v2-236b", 2, 64, 512), ("grok-1-314b", 1, 4, 512),
                 ("qwen2-vl-72b", 2, None, 512),
-                ("whisper-large-v3", None, None, 384))
+                ("whisper-large-v3", 8, None, 384))
 #: kernels vs plain versions over two steps where tokens of a step route
 #: differently (at most ROUTING_FLIP_MAX of them): a flipped token moves to
 #: another expert wholesale, so the loss and the normwise differences of
@@ -357,10 +399,11 @@ FLIP_LOSS_RTOL, FLIP_NORMWISE = 1e-3, 1e-1
 #: DIST_RANKS ranks for DIST_STEPS steps under (b) dp2 x tp2 and (c) the
 #: hsize=2 dp2|tp2 strategy, each rank's B1 launches a step (one a layer),
 #: then (d) phase 5's blocks under tp2 x pp2 for one step of DIST_PP_MICRO
-#: microbatches, and the ranks' time limits (s).  (b) and (c) take 2 of
-#: phase 5's 3 steps: with (d) added, a whole run of this script at 3 steps
-#: (from a ``git archive``, on an H100 80GB HBM3 at 700 W) took 1220 s,
-#: past the 1200 s limit
+#: microbatches, and the ranks' time limits (s).  (b) and (c) take 1 of
+#: phase 5's 3 steps: a rank step takes 20-32 s of host staging and gloo
+#: exchanges, and at 2 steps a whole run of this script (from a
+#: ``git archive``, on an H100 80GB HBM3 at 700 W) took 1077-1081 s, too
+#: near the 1200 s limit
 DIST_SWEEP = {2: "comm,async", 4: "comm,api,async,search"}
 #: phase 10 (e): one DeepSeek-V2 MoE layer at published widths (160 routed
 #: experts top-6 at capacity factor 1.25, 2 shared, d_expert 1536), fp32,
@@ -377,7 +420,7 @@ EP_Y_NORMWISE, EP_AUX_REL = 1e-5, 1e-6
 DRYRUN_FULL = (("qwen2-1.5b", "train_4k"), ("deepseek-v2-236b", "train_4k"))
 ANCHOR_RTOL = 0.20
 DRYRUN_THREADS = 1
-DIST_RANKS, DIST_STEPS, DIST_PP_MICRO = 4, 2, 4
+DIST_RANKS, DIST_STEPS, DIST_PP_MICRO = 4, 1, 2
 DIST_SWEEP_TIMEOUT, DIST_RUN_TIMEOUT = 180, 660
 
 
@@ -539,6 +582,11 @@ def attention_cases():
          "bhsd"),
         ("main D256 fp32", "float32", 4, 16, 1, 512, 512, 256, True, 2048,
          "bshd"),
+        # Whisper large-v3's decoder self-attention at phase 9's prefill
+        ("main D64 fp32", "float32", 4, 20, 20, 384, 384, 64, True, None,
+         "bshd"),
+        ("main D64 bf16", "bfloat16", 4, 20, 20, 384, 384, 64, True, None,
+         "bshd"),
         ("main D256 bf16", "bfloat16", 4, 16, 1, 512, 512, 256, True, 2048,
          "bshd"),
         ("D256 window 128", "float32", 1, 4, 1, 640, 640, 256, True, 128,
@@ -590,9 +638,11 @@ def attention_cases():
 
 
 def ssd_cases():
-    """(name, dtype, b, s, h, p, n, chunk); B and C are contiguous, except
-    in the "column views" case, where they are column slices of one wider
-    tensor, as the model passes them."""
+    """(name, dtype, b, s, h, p, n, chunk); x, B and C are contiguous,
+    except in the "column views" cases, where they are slices of one
+    (b, s, h p + 2 n) tensor, as the model passes them.  The bf16 cases after the fp32 ones
+    hold the bf16 design (tensor cores) at the fp32 cases' shapes, and at a
+    ragged chunk of 100 rows (64 + 36) with p 32 and n 64."""
     return [
         ("main fp32", "float32", 4, 512, 32, 64, 128, 256),
         ("main bf16", "bfloat16", 4, 512, 32, 64, 128, 256),
@@ -603,6 +653,11 @@ def ssd_cases():
         ("one chunk of 2048", "float32", 1, 2048, 4, 64, 128, 2048),
         ("h 5 bf16", "bfloat16", 2, 256, 5, 64, 128, 128),
         ("B, C column views", "float32", 2, 512, 32, 64, 128, 256),
+        ("3 chunks, small p n", "bfloat16", 1, 192, 2, 32, 64, 64),
+        ("s 1024, 4 chunks", "bfloat16", 2, 1024, 8, 64, 128, 256),
+        ("one chunk of 2048", "bfloat16", 1, 2048, 4, 64, 128, 2048),
+        ("B, C column views", "bfloat16", 2, 512, 32, 64, 128, 256),
+        ("ragged chunk 100, p 32", "bfloat16", 2, 300, 4, 32, 64, 100),
     ]
 
 
@@ -678,6 +733,9 @@ def phase_attention(torch, fa, ref, gen):
             sdpa = torch.nn.functional.scaled_dot_product_attention
             call = lambda: fa.flash_attention(q, k, v,  # noqa: E731
                                               causal=causal, window=window)
+            per_call = cuda_kernels_per_call(torch, call)
+            if per_call != 1:
+                fail(f"flash {name}: {per_call} CUDA kernels a call, not 1")
             ms, host_ms = time_ms(call), eager_ms(call)
             plain_ms = time_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=causal, window=window))
@@ -689,8 +747,10 @@ def phase_attention(torch, fa, ref, gen):
             timing[(d, dt)] = dict(ms=ms, plain_ms=plain_ms,
                                    library_ms=lib_ms, bound_ms=bnd,
                                    bound_by=by, sdpa_ratio=ms / lib_ms,
-                                   max_abs_err=err, eager_ms=host_ms)
-            print(f"    time: kernel {ms:.4f} ms (issued from Python one by "
+                                   max_abs_err=err, eager_ms=host_ms,
+                                   cuda_launches_per_call=per_call)
+            print(f"    time: kernel {ms:.4f} ms, one CUDA kernel a call "
+                  f"(issued from Python one by "
                   f"one {host_ms:.4f} ms), plain {plain_ms:.4f} ms, "
                   f"sdpa {lib_ms:.4f} ms (kernel / sdpa {ms / lib_ms:.2f}), "
                   f"bound {bnd:.4f} ms ({by}); kernel at {bnd / ms:.1%} of "
@@ -713,21 +773,37 @@ def _close(out, want, atol, rtol):
     return diff.max().item(), bool((diff <= atol + rtol * want.abs()).all())
 
 
-def phase_ssd(torch, sk, ref, gen):
+def phase_ssd(torch, sk, ref, gen, ptxas=()):
+    """Every SSD case against the plain version; the main ones timed.
+    ``ptxas``: phase 2's (kernel, registers, spill stores, spill loads) of
+    ``ssd_scan.cu``, printed beside the times."""
     F = torch.nn.functional
-    worst, timing = 0.0, {}
+    worst, worst_bf16, timing = 0.0, 0.0, {}
+    for fn, regs, st, ld in ptxas:
+        print(f"  ssd kernel {fn}: {regs} registers, spills {st} / {ld} B")
     for name, dt, b, s, h, p, n, chunk in ssd_cases():
         dtype = getattr(torch, dt)
 
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
-        x = (rnd(b, s, h, p) * 0.5).to(dtype)
+        if name == "B, C column views":
+            # x, B and C as the model splits its convolution output
+            # (b, s, h p + 2 n): x's rows are h p + 2 n apart
+            xbc = rnd(b, s, h * p + 2 * n)
+            xbc[..., :h * p] *= 0.5
+            xbc[..., h * p:] *= 0.3
+            xbc = xbc.to(dtype)
+            x = xbc[..., :h * p].unflatten(-1, (h, p))
+            B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+        else:
+            x = (rnd(b, s, h, p) * 0.5).to(dtype)
         dts = F.softplus(rnd(b, s, h))
         A = -torch.exp(rnd(h) * 0.3)
         if name == "B, C column views":
-            BC = (rnd(b, s, 2 * n + 16) * 0.3).to(dtype)
-            B, C = BC[..., 16:16 + n], BC[..., 16 + n:]
-            if sk.prepare(x, dts, A, B, C)[2].data_ptr() != B.data_ptr():
+            prep = sk.prepare(x, dts, A, B, C)
+            if prep.B.data_ptr() != B.data_ptr() or (
+                    dtype == torch.bfloat16
+                    and prep.x.data_ptr() != x.data_ptr()):
                 fail(f"ssd {name}: prepare() copied the column views")
         else:
             B = (rnd(b, s, n) * 0.3).to(dtype)
@@ -753,12 +829,20 @@ def phase_ssd(torch, sk, ref, gen):
         if not (oky and oks):
             fail(f"ssd {name}: y err {ey}, state err {es_}")
         worst = max(worst, ey, es_)
+        if dtype == torch.bfloat16:
+            worst_bf16 = max(worst_bf16, ey, es_)
         if name.startswith("main"):
             prep = sk.prepare(x, dts, A, B, C)
             call = lambda: sk.ssd_scan(x, dts, A, B, C,  # noqa: E731
                                        chunk=chunk)
+            alone = lambda: sk.launch(prep, chunk=chunk)  # noqa: E731
+            per_call = cuda_kernels_per_call(torch, alone)
+            if per_call != SSD_CUDA_LAUNCHES[dt]:
+                fail(f"ssd {name}: the kernel alone ran {per_call} CUDA "
+                     f"kernels a call, not {SSD_CUDA_LAUNCHES[dt]}")
+            wrapper_kernels = cuda_kernels_per_call(torch, call)
             ms, host_ms = time_ms(call), eager_ms(call)
-            kms = time_ms(lambda: sk.launch(*prep, chunk=chunk))
+            kms = time_ms(alone)
             plain_ms = time_ms(lambda: ref.ssd_scan_ref(x, dts, A, B, C,
                                                         chunk), iters=5)
             es = x.element_size()
@@ -767,12 +851,18 @@ def phase_ssd(torch, sk, ref, gen):
             timing[dt] = dict(ms=ms, kernel_ms=kms, plain_ms=plain_ms,
                               library_ms=None, bound_ms=bnd, bound_by=by,
                               kernel_bound_ms=kbnd, max_abs_err=max(ey, es_),
-                              eager_ms=host_ms)
+                              eager_ms=host_ms,
+                              cuda_launches_per_call=per_call)
             print(f"    time: wrapper {ms:.4f} ms (kernel alone {kms:.4f} "
                   f"ms; wrapper issued from Python one by one {host_ms:.4f} "
                   f"ms), plain {plain_ms:.4f} ms, no library call; bound "
                   f"{bnd:.4f} ms ({by}), kernel alone {kbnd:.4f} ms ({kby});"
-                  f" wrapper at {bnd / ms:.1%} of the bound")
+                  f" wrapper at {bnd / ms:.1%} of the bound; CUDA "
+                  f"kernels a call: {per_call:g} of the kernel alone, "
+                  f"{wrapper_kernels:g} of the wrapper")
+    print(f"  ssd bf16 (tensor cores): worst |err| {worst_bf16:.3e} over "
+          f"{sum(c[1] == 'bfloat16' for c in ssd_cases())} cases")
+    timing["bfloat16"]["worst_case_err"] = worst_bf16
     return worst, timing
 
 
@@ -849,7 +939,8 @@ def phase_rglru(torch, rk, ref, gen):
             bnd, by = rglru_bound_ms(b, s, w, dt, x.element_size())
             timing[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                               bound_ms=bnd, bound_by=by, max_abs_err=err,
-                              eager_ms=host_ms)
+                              eager_ms=host_ms,
+                              cuda_launches_per_call=per_call)
             print(f"    time: wrapper {ms:.4f} ms, one CUDA kernel a call "
                   f"(issued from Python one by one {host_ms:.4f} ms), plain "
                   f"{plain_ms:.4f} ms, no library call; bound {bnd:.4f} ms "
@@ -953,9 +1044,152 @@ def phase_serve(torch, policy, arch):
         fail(f"{arch}: prefill through the kernels disagrees with the "
              f"plain path")
     where_the_time_goes(torch, cfg, params, {"tokens": prompts})
-    del params, res, plain
+    fp32_logits = res["prefill_logits"]
+    del res, plain
+    bf16 = phase_serve_bf16(torch, policy, cfg, params, prompts, fp32_logits)
+    del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, bf16
+
+
+def phase_serve_bf16(torch, policy, cfg, params, prompts, fp32_logits):
+    """The same prompts prefilled in bf16 through ``build_prefill_step``, on
+    phase 4's weights cast to bf16 under the JAX package's rule (``A_log``,
+    ``dt_bias`` and ``lam`` stay fp32): every kernel once per layer that
+    holds it, none plain, no farther from the fp32 prefill than the same
+    bf16 prefill through the plain versions is (gated, by
+    ``BF16_VS_FP32_RATIO``) and against that plain prefill (recorded); its
+    time, peak memory, device busy share and the SSD scan's share of it."""
+    from repro_torch import serve
+    from repro_torch.convert import FP32_LEAVES, cast_params
+    from repro_torch.train.steps import build_prefill_step
+    from repro_torch.tree import paths
+
+    print(f"== phase 4 bf16: prefill {cfg.name} in bf16, {BATCH}x{PROMPT}")
+    pb = cast_params(params, torch.bfloat16)
+    wrong = [path for path, leaf in paths(pb) if leaf.dtype != (
+        torch.float32 if path[-1] in FP32_LEAVES else torch.bfloat16)]
+    if wrong:
+        fail(f"{cfg.name} bf16: leaves off the fp32-leaf rule: {wrong}")
+    kept = sorted({path[-1] for path, leaf in paths(pb)
+                   if leaf.dtype == torch.float32})
+    prefill, batch = build_prefill_step(cfg), {"tokens": prompts}
+    policy.set_policy("auto")
+    prefill(pb, batch)  # warm-up: cuBLAS's bf16 set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    for mod in serve.KERNELS.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    logits = prefill(pb, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = serve.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expected_prefill_launches(cfg)
+    print(f"  prefill {ms:.2f} ms, peak memory {peak:.2f} GiB, of which "
+          f"{peak - resident:.2f} GiB above the resident fp32 weights and "
+          f"their bf16 copy; kernel launches {launches} (expected {want}); "
+          f"fp32 leaves kept: {kept}")
+    if launches != want:
+        fail(f"{cfg.name} bf16: expected {want} launches in prefill, got "
+             f"{launches}")
+    if logits.shape != (BATCH, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"{cfg.name} bf16: logits {tuple(logits.shape)} or non-finite")
+
+    policy.set_policy("ref")
+    try:
+        plain = prefill(pb, batch)
+    finally:
+        policy.set_policy("auto")
+
+    def compare(got, want):
+        a, b = got.float(), want.float()
+        return {"normwise": normwise(a, b),
+                "max_abs_diff": (a - b).abs().max().item(),
+                "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float()
+                .mean().item()}
+    vs_plain, vs_fp32 = compare(logits, plain), compare(logits, fp32_logits)
+    plain_vs_fp32 = compare(plain, fp32_logits)
+    limit = BF16_VS_FP32_RATIO * plain_vs_fp32["normwise"]
+    ok = vs_fp32["normwise"] <= limit
+    for what, d in (("kernels", vs_fp32), ("plain versions", plain_vs_fp32)):
+        print(f"  bf16 through the {what} vs the fp32 prefill: normwise "
+              f"{d['normwise']:.3e}, max |diff| {d['max_abs_diff']:.3e}, "
+              f"argmax agrees on {d['argmax_agree']:.0%} of prompts")
+    print(f"  kernels' distance from fp32 at most {BF16_VS_FP32_RATIO} x the "
+          f"plain versions' = {limit:.3e}: "
+          f"{vs_fp32['normwise'] / plain_vs_fp32['normwise']:.3f} x, "
+          f"{'ok' if ok else 'FAIL'}; kernels vs plain versions (bf16, "
+          f"recorded): normwise {vs_plain['normwise']:.3e}, max |diff| "
+          f"{vs_plain['max_abs_diff']:.3e}, argmax agrees on "
+          f"{vs_plain['argmax_agree']:.0%}")
+    if not ok:
+        fail(f"{cfg.name} bf16: prefill through the kernels lies farther "
+             f"from the fp32 prefill than the plain bf16 path does")
+    on_path = ssd_on_path(torch, lambda: prefill(pb, batch)) if want[
+        "ssd"] else None
+    wall, kernels = profiled(torch, lambda: prefill(pb, batch))
+    busy = sum(k_ms for k_ms, _, _ in kernels)
+    ssd_ms = sum(k_ms for k_ms, key, _ in kernels if "ssd_" in key)
+    print(f"  where the time goes: host {wall:.3f} ms, device kernels "
+          f"{busy:.3f} ms ({busy / wall:.1%} busy); SSD scan {ssd_ms:.3f} ms "
+          f"({ssd_ms / busy:.1%} of device time)")
+    for k_ms, key, count in kernels[:6]:
+        print(f"    {k_ms:8.3f} ms  {count:4d}x  {key[:80]}")
+    del pb, logits, plain
+    return {"prefill_ms": ms, "peak_gib": peak,
+            "prefill_gib": peak - resident, "launches": launches,
+            "vs_plain": vs_plain, "vs_fp32": vs_fp32,
+            "plain_vs_fp32": plain_vs_fp32, "limit": limit, "host_ms": wall,
+            "device_ms": busy, "busy": busy / wall, "ssd_ms": ssd_ms,
+            "ssd_share": ssd_ms / busy, "ssd_on_path": on_path}
+
+
+def ssd_on_path(torch, run):
+    """Every SSD kernel call of ``run`` (a bf16 prefill) held against the
+    plain version on that call's own inputs: x, B and C as the model passes
+    them (views of the convolution output), dt and A as the layer forms
+    them.  Each y and state within phase 3's tolerance and within
+    ``SSD_PATH_NORMWISE``: the last position's logits hardly see a fault in
+    the state carried between chunks, and at the model's small y phase 3's
+    atol would not either."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_ref
+    kernel, (atol, rtol) = ops.ssd_scan_with_grad, SSD_TOL["bfloat16"]
+    calls = []  # (y's max |err|, normwise, the state's, ok) a call
+
+    def rel(a, b):
+        return ((a.double() - b).norm() / b.double().norm()).item()
+
+    def held(x, dt, A, B, C, *, chunk):
+        y, st = kernel(x, dt, A, B, C, chunk=chunk)
+        yr, sr = ssd_scan_ref(x.float(), dt, A, B.float(), C.float(), chunk)
+        (ey, oky), (es, oks) = _close(y, yr, atol, rtol), _close(
+            st, sr, atol, rtol)
+        ny, ns = rel(y, yr), rel(st, sr)
+        calls.append((ey, ny, es, ns, oky and oks and max(ny, ns)
+                      <= SSD_PATH_NORMWISE))
+        return y, st
+    ops.ssd_scan_with_grad = held
+    try:
+        run()
+    finally:
+        ops.ssd_scan_with_grad = kernel
+    bad = sum(not c[-1] for c in calls)
+    ey, ny, es, ns = (max((c[k] for c in calls), default=0.0)
+                      for k in range(4))
+    print(f"  SSD on the prefill's own inputs: {len(calls)} calls, worst y "
+          f"|err| {ey:.3e}, normwise {ny:.3e}; state {es:.3e}, {ns:.3e} "
+          f"(atol {atol:.0e}, rtol {rtol:.0e}, normwise at most "
+          f"{SSD_PATH_NORMWISE:.2e}): {f'{bad} FAIL' if bad else 'ok'}")
+    if bad or not calls:
+        fail(f"SSD on the prefill's own inputs: {bad} of {len(calls)} calls "
+             f"off the plain version")
+    return {"calls": len(calls), "max_abs_err_y": ey, "normwise_y": ny,
+            "max_abs_err_state": es, "normwise_state": ns}
 
 
 def where_the_time_goes(torch, cfg, params, prompt, steps=8):
@@ -963,9 +1197,6 @@ def where_the_time_goes(torch, cfg, params, prompt, steps=8):
     device kernel time under ``torch.profiler`` (so the device's busy
     share), and the heaviest kernels.  Returns {"prefill", "decode step":
     {"host_ms", "device_ms", "busy"}}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import serve
     from repro_torch.models.model import init_decode_state, run_encoder
     from repro_torch.train.steps import build_decode_step, build_prefill_step
@@ -992,38 +1223,52 @@ def where_the_time_goes(torch, cfg, params, prompt, steps=8):
     out = {}
     for name, fn, n in (("prefill", run_prefill, 1),
                         ("decode step", run_decode, steps)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        dev_ms = [(getattr(e, "self_device_time_total", None)
-                   or e.self_cuda_time_total) / 1e3 / n for e in kernels]
-        busy = sum(dev_ms)
-        top = sorted(zip(dev_ms, (e.key for e in kernels)), reverse=True)[:6]
+        wall, kernels = profiled(torch, fn, n)
+        busy = sum(ms for ms, _, _ in kernels)
         print(f"  {name}: host {wall:.3f} ms, device kernels {busy:.3f} ms "
-              f"({busy / wall:.1%} busy), {sum(e.count for e in kernels) // n}"
-              f" kernel launches")
-        for ms, key in top:
+              f"({busy / wall:.1%} busy), "
+              f"{sum(k for _, _, k in kernels) // n} kernel launches")
+        for ms, key, _ in kernels[:6]:
             print(f"    {ms:8.3f} ms  {key[:90]}")
         out[name] = {"host_ms": wall, "device_ms": busy, "busy": busy / wall}
     return out
 
 
+def profiled(torch, fn, n=1):
+    """Host ms of one unprofiled run of fn (after a warm one), synchronized,
+    over ``n``; and fn's CUDA kernels under ``torch.profiler``, heaviest
+    first, as (device ms over ``n``, name, launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [((getattr(e, "self_device_time_total", None)
+                 or e.self_cuda_time_total) / 1e3 / n, e.key, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return wall, sorted(kernels, reverse=True)
+
+
 def block_weights(prog, rng):
     """Norm weights at one, the rest N(0, 0.05^2), drawn in parameter
-    order as ``tests/test_archs.py`` draws them."""
+    order, in fp32: a float64 draw and cast takes over twice as long,
+    which phase 8's 1.5 B parameters and each rank of phase 10 feel."""
     import numpy as np
+
+    def normal(shape):
+        w = rng.standard_normal(shape, dtype=np.float32)
+        w *= np.float32(0.05)
+        return w
     return {t.name: np.ones(t.shape, np.float32)
-            if "norm" in t.name.split("/")[-1]
-            else (rng.standard_normal(t.shape) * 0.05).astype(np.float32)
+            if "norm" in t.name.split("/")[-1] else normal(t.shape)
             for t in prog.graph.parameters()}
 
 
@@ -1425,9 +1670,10 @@ def train_config(arch, layers, experts=None):
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
     cfg = get_config(arch)
     if layers:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = cut_depth(cfg, layers)
     if experts:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, n_experts=experts))
@@ -2510,7 +2756,7 @@ def device_activity(prof):
 def phase_async(torch, fa, ref):
     """Phase 8: the async MPMD pipeline executor on the card.  (a) the
     exact-data selftest programs, bitwise the simulator's; (b) full-width
-    Llama-32B blocks under tp2 x pp2, one 1F1B step of 4 microbatches
+    Llama-32B blocks under tp2 x pp2, one 1F1B step of 2 microbatches
     through ``TorchExecutor``, ``AsyncExecutor`` and its serialized
     baseline, bitwise across the three, with the time split, the overlap,
     the device's concurrency, the ticks' device times, peak memory and the
@@ -2696,13 +2942,14 @@ def phase_family(torch, policy, fa, ref, arch, layers, plen):
 
     from repro_torch import serve
     from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
     from repro_torch.models import moe
     from repro_torch.models.model import init_params
     from repro_torch.train.steps import build_prefill_step
     from repro_torch.tree import tree_leaves
 
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    cfg = cut_depth(full, layers) if layers else full
     print(f"== phase 9: serve {arch}, published widths, {cfg.n_layers} of "
           f"{full.n_layers} layers; {card_line()}")
     torch.cuda.empty_cache()
@@ -3777,18 +4024,18 @@ def check_rank_run(ranks, run, what, ir_losses, want_shapes):
 
 def check_pipeline(ranks, total_mem):
     """(d): each rank's split, traffic, peaks and ticks; B1 once a
-    microbatch on every rank at q (1, 6, 512, 128) in both runs, none
+    microbatch on every rank at q (2, 6, 512, 128) in both runs, none
     plain; the ranks' losses equal; rank 0's checks (the two rank
     executors bitwise, the stacked run within phase 5's limits); the four
     ranks' peaks under the card's memory and the host's 96 GiB.  Returns
     the overlap on ranks and the launches."""
-    hd = 128
-    want_shape = [[[1, 6, IR_SEQ, hd], [1, 1, IR_SEQ, hd]]]
+    hd, mb = 128, IR_BATCH // DIST_PP_MICRO
+    want_shape = [[[mb, 6, IR_SEQ, hd], [mb, 1, IR_SEQ, hd]]]
     d0 = ranks[0]["d"]
     print(f"  (d) phase 5's blocks (q/k/v biases left out) under tp2 x pp2, "
           f"{d0['params'] / 1e6:.1f} M parameters, one interleaved 1F1B step "
           f"(v={d0['v']}, {d0['ticks']} ticks) of {DIST_PP_MICRO} "
-          f"microbatches of 1 x {IR_SEQ} on DistAsyncExecutor, then "
+          f"microbatches of {mb} x {IR_SEQ} on DistAsyncExecutor, then "
           f"DistExecutor; setup {d0['setup_s']:.1f} s a rank")
     launches = 0
     for r in ranks:
@@ -3995,10 +4242,11 @@ def phase_dist(torch, fa, ref, ref_state, ir_losses, ep_layer):
                             IR_SEQ, 128)
     timing_dp["launches"] = sum(r["c"]["launches"] for r in ranks
                                 if r["rank"] < 2)
-    shape = (f"B1 H6 K1 S{IR_SEQ} D128 causal fp32 (graph-IR Qwen2-1.5B "
+    mb = IR_BATCH // DIST_PP_MICRO
+    shape = (f"B{mb} H6 K1 S{IR_SEQ} D128 causal fp32 (graph-IR Qwen2-1.5B "
              f"under tp2 x pp2 on {DIST_RANKS} ranks sharing the card: a "
              f"rank's microbatch, DistAsyncExecutor and DistExecutor)")
-    timing_pp = b1_at_shape(torch, fa, ref, shape, 1, 6, 1, IR_SEQ, 128)
+    timing_pp = b1_at_shape(torch, fa, ref, shape, mb, 6, 1, IR_SEQ, 128)
     timing_pp["launches"] = d_launches
     t_phase = time.perf_counter() - t_phase
     print(f"  phase 10: {t_phase:.1f} s")
@@ -4066,11 +4314,15 @@ def main() -> int:
     print("== phase 3: kernels vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     fa_worst, fa_t = phase_attention(torch, fa, ref, gen)
-    ssd_worst, ssd_t = phase_ssd(torch, sk, ref, gen)
+    ssd_worst, ssd_t = phase_ssd(torch, sk, ref, gen,
+                                 ptxas_report(reports.get("ssd_scan", "")))
     rg_worst, rg_t = phase_rglru(torch, rk, ref, gen)
 
-    paths = {arch: phase_serve(torch, policy, arch) for arch in ARCHS}
-    total = {k: sum(p[k] for p in paths.values()) for k in paths[ARCHS[0]]}
+    served = {arch: phase_serve(torch, policy, arch) for arch in ARCHS}
+    paths = {arch: run[0] for arch, run in served.items()}
+    bf16_serve = {arch: run[1] for arch, run in served.items()}
+    total = {k: sum(p[k] + bf16_serve[a]["launches"][k]
+                    for a, p in paths.items()) for k in paths[ARCHS[0]]}
     t_ir = time.perf_counter()
     print(f"  phases 1-4: {t_ir - t_start:.1f} s")
     ir, ir_run = phase_graph_ir(torch, fa, ref, sim_ref)
@@ -4141,16 +4393,23 @@ def main() -> int:
                         "into the batch; times at phase 5's shape)",
          "launches": elastic["launches"]},
         pp_b1,
-        {"shape": "B4 H12 K2 S512 D128 causal bf16 (tensor cores)",
-         "launches": 0, **fa_t[(128, "bfloat16")]},
+        {"shape": "B4 H12 K2 S512 D128 causal bf16 (tensor cores; "
+                  "Qwen2-1.5B bf16 prefill)",
+         "launches": bf16_serve["qwen2-1.5b"]["launches"]["flash"],
+         **fa_t[(128, "bfloat16")]},
         {"shape": "B4 H16 K1 S512 D256 causal window 2048 bf16 (tensor "
-                  "cores)", "launches": 0, **fa_t[(256, "bfloat16")]},
+                  "cores; RecurrentGemma-9B bf16 prefill)",
+         "launches": bf16_serve["recurrentgemma-9b"]["launches"]["flash"],
+         **fa_t[(256, "bfloat16")]},
         {"shape": "B4 H128 K128 S512 D192/128 causal fp32 (DeepSeek-V2 MLA "
                   "prefill)",
          "launches": fams["deepseek-v2-236b"]["launches"]["flash"],
          **fa_t[(192, "float32")]},
         {"shape": "B4 H128 K128 S512 D192/128 causal bf16 (tensor cores)",
          "launches": 0, **fa_t[(192, "bfloat16")]},
+        {"shape": "B4 H20 K20 S384 D64 causal bf16 (tensor cores; "
+                  "Whisper large-v3's decoder self-attention)",
+         "launches": 0, **fa_t[(64, "bfloat16")]},
         *({**fam_b1[arch], "launches": fams[arch]["launches"]["flash"]}
           for arch in fam_b1),
         # phase 12 trains at the prefill shapes of phases 3 and 9 (a
@@ -4167,21 +4426,32 @@ def main() -> int:
     kernels = [
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:114", total["flash"],
-              fa_worst, fa_t[(128, "float32")], cuda_launches_per_call=1,
+              fa_worst, fa_t[(128, "float32")],
+              cuda_launches_per_call=fa_t[(128, "float32")][
+                  "cuda_launches_per_call"],
               shapes=flash_shapes, training=training("flash")),
         entry("ssd_scan", csrc + "ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:92", total["ssd"], ssd_worst,
               ssd_t["float32"], kernel_ms=ssd_t["float32"]["kernel_ms"],
-              cuda_launches_per_call=3,
+              cuda_launches_per_call=ssd_t["float32"][
+                  "cuda_launches_per_call"],
               shape="b4 s512 h32 p64 n128 chunk256 fp32 "
-                    "(Mamba2-370M prefill)", bf16=ssd_t["bfloat16"],
+                    "(Mamba2-370M prefill)",
+              bf16={**ssd_t["bfloat16"], "launches": bf16_serve[
+                  "mamba2-370m"]["launches"]["ssd"],
+                  "shape": "the same in bf16 (Mamba2-370M bf16 prefill; "
+                           "tensor cores)"},
               training=training("ssd")),
         entry("rglru_scan", csrc + "rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:70", total["rglru"], rg_worst,
-              rg_t["float32"], cuda_launches_per_call=1,
+              rg_t["float32"], cuda_launches_per_call=rg_t["float32"][
+                  "cuda_launches_per_call"],
               shape="b4 s512 w4096 fp32 (RecurrentGemma-9B prefill)",
-              bf16=rg_t["bfloat16"], training=training("rglru")),
+              bf16={**rg_t["bfloat16"], "launches": bf16_serve[
+                  "recurrentgemma-9b"]["launches"]["rglru"]},
+              training=training("rglru")),
     ]
+    print("serve_bf16: " + json.dumps(bf16_serve))
     print("training: " + json.dumps({
         arch: {k: v for k, v in t.items() if k != "learn_losses"}
         for arch, t in train.items()}))

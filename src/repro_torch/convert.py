@@ -11,6 +11,8 @@ inside a Griffin group's ``subs`` list, list indices
 The map runs both ways: :func:`params_from_jax` and :func:`opt_state_from_jax`
 carry a JAX tree over; :func:`params_to_jax` gives a port tree (parameters,
 or AdamW's m or v) back in the JAX layout as numpy, leaf for leaf.
+:func:`cast_params` casts a port tree to another type under the JAX
+package's rule (:data:`FP32_LEAVES` stay fp32).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from .device import resolve_device
 from .models.config import ModelConfig
 from .models.model import dense_d_ff, griffin_pattern, layer_groups
-from .tree import paths
+from .tree import paths, unflatten_like
 
 #: leaves the JAX package keeps in fp32 whatever the model dtype
 FP32_LEAVES = ("A_log", "dt_bias", "lam")
@@ -197,6 +199,15 @@ def params_from_jax(tree, cfg: ModelConfig, *, device=None,
         raise ValueError("unused JAX parameters: "
                          + ", ".join(path_str(p) for p in src))
     return _lists(params)
+
+
+def cast_params(params, dtype) -> dict:
+    """The port's parameters in ``dtype``, the leaves in
+    :data:`FP32_LEAVES` kept fp32, as the JAX package's ``init_params(key,
+    cfg, dtype)`` makes them."""
+    leaves = [leaf if path[-1] in FP32_LEAVES else leaf.to(dtype)
+              for path, leaf in paths(params)]
+    return unflatten_like(params, leaves)
 
 
 def opt_state_from_jax(state, cfg: ModelConfig, *, device=None) -> dict:

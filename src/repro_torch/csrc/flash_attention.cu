@@ -1259,60 +1259,20 @@ cudaError_t launch_mla_f32(const Params& p, cudaStream_t s) {
                        MlaF32::SMEM, ready, s);
 }
 
-// cuTensorMapEncodeTiled (libcuda), looked up at run time through the
-// runtime's entry-point query, so that the library links only cudart.
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-d bf16 map (width, rows, heads, batch) over `base` with element
-// strides ss, sh, sb, boxes of 64 x box_rows in the 128-byte swizzle.  The
-// stride of a dim of extent 1 is never used; it is replaced by a natural
-// one, since the encoder wants every stride a positive multiple of 16 B.
-bool encode_bf16_map(CUtensorMap* map, EncodeTiled encode, const void* base,
-                     int width, int rows, int heads, int batch, int64_t ss,
-                     int64_t sh, int64_t sb, int box_rows) {
-  cuuint64_t st[3] = {cuuint64_t(2 * ss), cuuint64_t(2 * sh),
-                      cuuint64_t(2 * sb)};
-  if (rows == 1) st[0] = (2 * width + 15) / 16 * 16;
-  if (heads == 1) st[1] = st[0] * rows;
-  if (batch == 1)
-    st[2] = st[1] * heads > st[0] * rows ? st[1] * heads : st[0] * rows;
-  const cuuint64_t dims[4] = {cuuint64_t(width), cuuint64_t(rows),
-                              cuuint64_t(heads), cuuint64_t(batch)};
-  const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, st, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 cudaError_t launch_mla_bf16(const Params& p, cudaStream_t s) {
   static bool ready = false;
   // the epilogue stores whole 16-byte chunks of O's rows
   if (p.o_ss % 8 != 0 || reinterpret_cast<uintptr_t>(p.o) % 16 != 0)
     return cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   MlaBf16Args a;
   a.p = p;
-  if (!encode_bf16_map(&a.q, encode, p.q, MlaBf16::D, p.Sq, p.H, p.B,
+  if (!hopper::encode_bf16_map(&a.q, encode, p.q, MlaBf16::D, p.Sq, p.H, p.B,
                        p.q_ss, p.q_sh, p.q_sb, MlaBf16::BQ) ||
-      !encode_bf16_map(&a.k, encode, p.k, MlaBf16::D, p.Sk, p.KH, p.B,
+      !hopper::encode_bf16_map(&a.k, encode, p.k, MlaBf16::D, p.Sk, p.KH, p.B,
                        p.k_ss, p.k_sh, p.k_sb, MlaBf16::BK) ||
-      !encode_bf16_map(&a.v, encode, p.v, MlaBf16::DV, p.Sk, p.KH, p.B,
+      !hopper::encode_bf16_map(&a.v, encode, p.v, MlaBf16::DV, p.Sk, p.KH, p.B,
                        p.v_ss, p.v_sh, p.v_sb, MlaBf16::BK))
     return cudaErrorInvalidValue;
   cudaError_t err =

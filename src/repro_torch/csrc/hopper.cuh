@@ -3,22 +3,22 @@
 // sm_80+ instructions that Hopper keeps: an fp32 store in either element
 // type, 16-byte asynchronous copies (cp.async), ldmatrix, the bf16
 // tensor-core product mma.sync m16n8k16 with fp32 accumulation, and 2^x on
-// the MUFU unit; and the one-time setting of a kernel's shared-memory
-// attributes.
+// the MUFU unit; and, on the host, the one-time setting of a kernel's
+// shared-memory attributes and the encoding of bf16 TMA tensor maps.
 //
 // sm_90a only (the `a` target: wgmma exists nowhere else), used by the MLA
-// bf16 attention kernel: mbarriers (init, arrive, arrive with an expected
-// transaction count, parity wait), TMA tile loads (cp.async.bulk.tensor,
-// 4-d, completed on an mbarrier), tensor-map prefetch and the proxy fence
-// before reuse of TMA-written bytes, setmaxnreg, and the warpgroup
-// products
-// wgmma.mma_async m64n64k16 (A from registers, B from shared memory
-// K-major) and m64n128k16 (A from registers, B from shared memory N-major)
-// with their fence / commit / wait and 128-byte-swizzle matrix
-// descriptors.
+// bf16 attention kernel and the bf16 SSD scan: mbarriers (init, arrive,
+// arrive with an expected transaction count, parity wait), TMA tile loads
+// (cp.async.bulk.tensor, 4-d, completed on an mbarrier), tensor-map
+// prefetch and the proxy fence between generic and async accesses to
+// shared memory, setmaxnreg, and the warpgroup products wgmma.mma_async
+// m64n64k16 and m64n128k16, A from registers and B from shared memory
+// K-major or N-major, with their fence / commit / wait and
+// 128-byte-swizzle matrix descriptors.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -101,6 +101,47 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// cuTensorMapEncodeTiled (libcuda), looked up at run time through the
+// runtime's entry-point query, so that the library links only cudart.
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-d bf16 map (width, rows, heads, batch) over `base` with element
+// strides ss, sh, sb, boxes of 64 x box_rows in the 128-byte swizzle.  The
+// stride of a dim of extent 1 is never used; it is replaced by a natural
+// one, since the encoder wants every stride a positive multiple of 16 B.
+inline bool encode_bf16_map(CUtensorMap* map, EncodeTiled encode,
+                            const void* base, int width, int rows, int heads,
+                            int batch, int64_t ss, int64_t sh, int64_t sb,
+                            int box_rows) {
+  cuuint64_t st[3] = {cuuint64_t(2 * ss), cuuint64_t(2 * sh),
+                      cuuint64_t(2 * sb)};
+  if (rows == 1) st[0] = (2 * width + 15) / 16 * 16;
+  if (heads == 1) st[1] = st[0] * rows;
+  if (batch == 1)
+    st[2] = st[1] * heads > st[0] * rows ? st[1] * heads : st[0] * rows;
+  const cuuint64_t dims[4] = {cuuint64_t(width), cuuint64_t(rows),
+                              cuuint64_t(heads), cuuint64_t(batch)};
+  const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, st, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Allow `kernel` up to `smem` bytes of dynamic shared memory and prefer the
@@ -291,6 +332,48 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tn(float (&d)[64],
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, fp32) += a (64 x 16 bf16 in registers, as in
+// wgmma_m64n64k16_rs) b, with b (16 x 64 bf16) in shared memory N-major
+// (its 64 columns contiguous: one 128-byte row of the swizzle).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tn(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, fp32; d = 0 first when !accumulate) += a b^T: a (64 x 16
+// bf16) in registers as above, b (128 x 16 bf16) K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
+        HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 #undef HOPPER_D8

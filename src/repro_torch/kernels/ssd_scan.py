@@ -3,15 +3,21 @@
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py`` (``ssd_scan``,
 pallas_call at line 92, body ``_kernel``).  Same contract: x (b, s, h, p),
 dt (b, s, h) softplus-ed, A (h,), B and C (b, s, n); returns y (b, s, h, p)
-in x's type and the final state (b, h, p, n) in fp32.  As in the JAX
-wrapper, ``la = dt * A`` is formed in fp32 and ``xbar = x * dt`` in x's
-type here, and the kernel takes la, xbar, B and C.  It takes x, B and C
-of one type, fp32 or bf16, p in :data:`HEAD_DIMS`, n up to :data:`MAX_STATE`
-and any s that is a multiple of ``chunk`` (the JAX gate).  B and C are read
-through their row strides, so the model's column slices of the convolution
-output reach the kernel without a copy.  One call issues three CUDA
+in x's type and the final state (b, h, p, n) in fp32.  It takes x, B and C
+of one type, fp32 or bf16, p in :data:`HEAD_DIMS`, n up to
+:data:`MAX_STATE` and any s that is a multiple of ``chunk`` (the JAX gate).
+B and C are read through their row strides, so the model's column slices
+of the convolution output reach the kernel without a copy.
+
+Each type has a design of its own.  fp32 runs on the CUDA cores, exact
+with TF32 off: as in the JAX wrapper, ``la = dt * A`` (fp32) and
+``xbar = x * dt`` are formed here, and one call issues three CUDA
 launches (chunk states, the state pass, the outputs) into two fp32 scratch
-arrays allocated here; it counts as one.
+arrays allocated here.  bf16 runs its products on the tensor cores
+(``wgmma``): it takes x (through its row strides, like B and C), dt and A
+as they are and forms la and the dt scaling inside, and one call issues
+two CUDA launches (chunk states with the carry, the outputs) into two
+scratch arrays allocated here.  Either counts as one launch.
 
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.ssd_scan_ref`.  On a CUDA tensor it launches
@@ -28,6 +34,7 @@ package has no backward for B2.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,26 +47,31 @@ NAME = "ssd_scan"
 HEAD_DIMS = (32, 64, 128)
 MAX_STATE = 128
 MAX_CHUNK = 2048
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches since the count was last set to 0
 launches = 0
 
-_fn = None
+_fns = None
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
+def _kernel_fns():
+    """(fp32 entry, bf16 entry, error string) of the built library."""
+    global _fns
+    if _fns is None:
         lib = _build.load(NAME)
-        fn = lib.ssd_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        f32 = lib.ssd_scan_fwd
+        f32.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4
+                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        f32.restype = ctypes.c_int
+        bf = lib.ssd_scan_bf16_fwd
+        bf.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        bf.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.ssd_scan_error_string)
-    return _fn
+        _fns = (f32, bf, lib.ssd_scan_error_string)
+    return _fns
 
 
 def eligible(x_shape, n: int, chunk: int) -> bool:
@@ -107,42 +119,88 @@ def _rows_aligned(t) -> bool:
             and t.stride(1) % per == 0)
 
 
-def prepare(x, dt, A, B, C):
-    """The kernel's inputs, formed as the JAX wrapper forms them:
-    ``la = dt * A`` in fp32 and ``xbar = x * dt`` in x's type, both
-    contiguous.  B and C pass as they are when their rows are aligned (the
-    model's column slices are); otherwise they are copied, with n padded
-    by zeros to a multiple of 8, which changes no product."""
-    la = (dt * A[None, None, :]).float().contiguous()
-    xbar = (x * dt[..., None].to(x.dtype)).contiguous()
+def _heads_aligned(x) -> bool:
+    """Whether the bf16 kernel can read x (b, s, h, p) as it is: each
+    position's h heads of p one after another, rows 16-byte aligned."""
+    return (x.stride(3) == 1 and x.stride(2) == x.shape[3]
+            and x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
+            and x.stride(1) % 8 == 0)
+
+
+class F32Inputs(NamedTuple):
+    """The fp32 design's inputs: ``la = dt * A`` and ``xbar = x * dt``."""
+    la: torch.Tensor
+    xbar: torch.Tensor
+    B: torch.Tensor
+    C: torch.Tensor
+
+
+class Bf16Inputs(NamedTuple):
+    """The bf16 design's inputs: it forms la and the dt scaling itself."""
+    dt: torch.Tensor
+    x: torch.Tensor
+    B: torch.Tensor
+    C: torch.Tensor
+    A: torch.Tensor
+
+
+def prepare(x, dt, A, B, C) -> F32Inputs | Bf16Inputs:
+    """The kernel's inputs.  fp32: :class:`F32Inputs`, formed as the JAX
+    wrapper forms them, la and xbar in fp32, both contiguous.  bf16:
+    :class:`Bf16Inputs`, dt and A fp32 and contiguous, x as it is where
+    :func:`_heads_aligned` (the model's head view of the convolution output
+    is), else a contiguous copy.  B and C pass as they are when their rows
+    are aligned (the model's column slices are); otherwise they are copied,
+    with n padded by zeros to a multiple of 8, which changes no product."""
     n8 = -(-B.shape[-1] // 8) * 8
 
     def rows(t):
         return t if _rows_aligned(t) else F.pad(
             t, (0, n8 - t.shape[-1])).contiguous()
-    return la, xbar, rows(B), rows(C)
+    if x.dtype == torch.bfloat16:
+        return Bf16Inputs(dt.float().contiguous(),
+                          x if _heads_aligned(x) else x.contiguous(),
+                          rows(B), rows(C), A.float().contiguous())
+    la = (dt * A[None, None, :]).float().contiguous()
+    xbar = (x * dt[..., None].to(x.dtype)).contiguous()
+    return F32Inputs(la, xbar, rows(B), rows(C))
 
 
-def launch(la, xbar, B, C, *, chunk: int, n: int | None = None):
-    """One call of the kernel on prepared inputs -> (y, state), with the
-    state cut to the first ``n`` columns where :func:`prepare` padded B and
-    C.  Counts nothing: :func:`ssd_scan` is the counted entry point."""
-    fn, err_str = _kernel_fn()
-    b, s, h, p = xbar.shape
-    npad = B.shape[-1]
-    dev = xbar.device
-    y = torch.empty_like(xbar)
+def launch(inp: F32Inputs | Bf16Inputs, *, chunk: int,
+           n: int | None = None):
+    """One call of the kernel on :func:`prepare`'s inputs -> (y, state),
+    with the state cut to the first ``n`` columns where :func:`prepare`
+    padded B and C.  Counts nothing: :func:`ssd_scan` is the counted entry
+    point."""
+    f32, bf, err_str = _kernel_fns()
+    xin = inp.x if isinstance(inp, Bf16Inputs) else inp.xbar
+    b, s, h, p = xin.shape
+    npad = inp.B.shape[-1]
+    B, C = inp.B, inp.C
+    dev = xin.device
+    y = torch.empty((b, s, h, p), dtype=xin.dtype, device=dev)
     state = torch.empty((b, h, p, npad), dtype=torch.float32, device=dev)
-    chunk_states = torch.empty((b, s // chunk, h, p, npad),
-                               dtype=torch.float32, device=dev)
-    cum = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(la.data_ptr(), xbar.data_ptr(), B.data_ptr(), C.data_ptr(),
-                y.data_ptr(), state.data_ptr(), chunk_states.data_ptr(),
-                cum.data_ptr(), B.stride(0), B.stride(1), C.stride(0),
-                C.stride(1), b, s, h, p, npad, chunk, DTYPES[xbar.dtype],
-                stream)
+        if isinstance(inp, Bf16Inputs):
+            pt = 64 if p <= 64 else 128
+            carried = torch.empty((b, s // chunk, h, 2, pt, MAX_STATE),
+                                  dtype=torch.bfloat16, device=dev)
+            rows = torch.empty((b, h, s, 4), dtype=torch.float32, device=dev)
+            rc = bf(xin.data_ptr(), inp.dt.data_ptr(), inp.A.data_ptr(),
+                    B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                    state.data_ptr(), carried.data_ptr(), rows.data_ptr(),
+                    xin.stride(0), xin.stride(1), B.stride(0), B.stride(1),
+                    C.stride(0), C.stride(1), b, s, h, p, npad, chunk, stream)
+        else:
+            chunk_states = torch.empty((b, s // chunk, h, p, npad),
+                                       dtype=torch.float32, device=dev)
+            cum = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+            rc = f32(inp.la.data_ptr(), xin.data_ptr(), B.data_ptr(),
+                     C.data_ptr(), y.data_ptr(), state.data_ptr(),
+                     chunk_states.data_ptr(), cum.data_ptr(), B.stride(0),
+                     B.stride(1), C.stride(0), C.stride(1), b, s, h, p, npad,
+                     chunk, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")
@@ -158,7 +216,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     check_inputs(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out = launch(*prepare(x, dt, A, B, C), chunk=chunk, n=B.shape[-1])
+    out = launch(prepare(x, dt, A, B, C), chunk=chunk, n=B.shape[-1])
     global launches
     launches += 1
     return out

@@ -15,7 +15,8 @@ the autograd of their plain versions.
       --batch 4 --seq 128 --elastic-probe
 
 ``--reduced`` swaps in the smoke-scale variant of the config; ``--layers``
-cuts the depth and ``--experts`` an MoE layer's routed experts, and both
+cuts the depth (an encoder-decoder's both stacks, :func:`cut_depth`) and
+``--experts`` an MoE layer's routed experts, and both
 keep every width (the reference's trainer has neither: they size a
 published config to one card).  Each step runs under the smoke mesh
 (``make_smoke_mesh()``, (data=1, model=1)), as the reference's does, so
@@ -146,6 +147,16 @@ def elastic_probe_report(device) -> None:
     print(f"elastic probe: {run.summary()}")
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` with its depth cut to ``layers``, every width kept: the
+    decoder stack, and an encoder-decoder's encoder stack too."""
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg.encdec:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, n_enc_layers=layers))
+    return cfg
+
+
 def main(argv=None) -> dict:
     """Train and return the run's numbers: per-step losses, gradient
     norms, learning rates, step times (ms, the device synchronized at each
@@ -191,7 +202,7 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = cut_depth(cfg, args.layers)
     if args.experts is not None:
         if cfg.moe is None:
             ap.error(f"--experts: {cfg.name} has no MoE layers")
@@ -201,6 +212,7 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, n_experts=args.experts))
     print(f"arch={cfg.name} ({cfg.family}) layers={cfg.n_layers} "
+          + (f"enc_layers={cfg.encdec.n_enc_layers} " if cfg.encdec else "")
           + (f"experts={cfg.moe.n_experts} " if cfg.moe else "")
           + f"d={cfg.d_model} params~{cfg.param_count() / 1e6:.1f}M "
           f"device={device}")

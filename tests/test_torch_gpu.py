@@ -183,7 +183,9 @@ def test_flash_attention_head_dim_256(cuda, dtype, window, s, atol):
 # (dtype, b, s, h, p, n, chunk, atol, rtol, views): the Mamba2-370M prefill
 # shape, three chunks at small p and n, b > 1 with h not a multiple of the
 # head group, four chunks (the state pass runs three times), one chunk of
-# 2048, and B and C as column slices of one tensor, as the model passes them
+# 2048, and x, B and C as slices of one tensor, as the model passes them.
+# bf16 runs the tensor-core design at every one of those shapes, and at a
+# ragged chunk of 100 rows (a 64-row tile and a 36-row one) with p 32, n 64
 @pytest.mark.parametrize("dtype,b,s,h,p,n,chunk,atol,rtol,views", [
     (torch.float32, 4, 512, 32, 64, 128, 256, 2e-4, 5e-2, False),
     (torch.bfloat16, 4, 512, 32, 64, 128, 256, 2e-1, 5e-2, False),
@@ -194,6 +196,12 @@ def test_flash_attention_head_dim_256(cuda, dtype, window, s, atol):
     (torch.float32, 1, 2048, 4, 64, 128, 2048, 2e-4, 5e-2, False),
     (torch.float32, 2, 512, 32, 64, 128, 256, 2e-4, 5e-2, True),
     (torch.bfloat16, 2, 192, 3, 128, 96, 96, 2e-1, 5e-2, True),
+    (torch.bfloat16, 1, 192, 2, 32, 64, 64, 2e-1, 5e-2, False),
+    (torch.bfloat16, 3, 256, 5, 64, 128, 128, 2e-1, 5e-2, False),
+    (torch.bfloat16, 2, 1024, 8, 64, 128, 256, 2e-1, 5e-2, False),
+    (torch.bfloat16, 1, 2048, 4, 64, 128, 2048, 2e-1, 5e-2, False),
+    (torch.bfloat16, 2, 512, 32, 64, 128, 256, 2e-1, 5e-2, True),
+    (torch.bfloat16, 2, 300, 4, 32, 64, 100, 2e-1, 5e-2, False),
 ])
 def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk,
                                        atol, rtol, views):
@@ -201,13 +209,23 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk,
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=cuda)
-    x = (rnd(b, s, h, p) * 0.5).to(dtype)
+    if views:
+        # x, B and C as the model splits its convolution output
+        xbc = rnd(b, s, h * p + 2 * n)
+        xbc[..., :h * p] *= 0.5
+        xbc[..., h * p:] *= 0.3
+        xbc = xbc.to(dtype)
+        x = xbc[..., :h * p].unflatten(-1, (h, p))
+        B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    else:
+        x = (rnd(b, s, h, p) * 0.5).to(dtype)
     dt = torch.nn.functional.softplus(rnd(b, s, h))
     A = -torch.exp(rnd(h) * 0.3)
     if views:
-        BC = (rnd(b, s, 2 * n + 16) * 0.3).to(dtype)
-        B, C = BC[..., 16:16 + n], BC[..., 16 + n:]
-        assert sk.prepare(x, dt, A, B, C)[2].data_ptr() == B.data_ptr()
+        prep = sk.prepare(x, dt, A, B, C)
+        assert prep.B.data_ptr() == B.data_ptr()
+        if dtype == torch.bfloat16:
+            assert prep.x.data_ptr() == x.data_ptr()
     else:
         B, C = ((rnd(b, s, n) * 0.3).to(dtype) for _ in range(2))
     before = sk.launches
@@ -218,6 +236,44 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk,
     assert y.dtype == dtype and st.dtype == torch.float32
     torch.testing.assert_close(y.float(), yr, atol=atol, rtol=rtol)
     torch.testing.assert_close(st, sr, atol=atol, rtol=rtol)
+
+
+def ssd_fp32_digest(device, b, s, h, p, n, chunk) -> str:
+    """sha256 of the fp32 kernel's y and final state on inputs drawn with
+    numpy from seed 3 (the same bytes on any card and torch version)."""
+    import hashlib
+
+    import numpy as np
+    rng = np.random.default_rng(3)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(device)
+    x, dt = t(b, s, h, p, scale=0.5), torch.nn.functional.softplus(t(b, s, h))
+    A = -torch.exp(t(h, scale=0.3))
+    B, C = t(b, s, n, scale=0.3), t(b, s, n, scale=0.3)
+    y, st = sk.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    digest = hashlib.sha256()
+    for out in (y, st):
+        digest.update(out.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+# the fp32 design's outputs, pinned bit for bit: the digests of the build
+# before the bf16 design was added, on an H100 (the kernel is deterministic)
+SSD_FP32_DIGESTS = {
+    (4, 512, 32, 64, 128, 256):
+        "67c11ac05fa78f7ea7d9619a3a0bd6cd5c974f630de2a0396d05cff8445f9793",
+    (1, 192, 2, 32, 64, 64):
+        "8432e48e26fa085404134f231a9c5ad1693b79671eda8a171e59068487c6779d",
+    (3, 256, 5, 64, 128, 128):
+        "d5cb28934e8404360cc1a3fc9b2680f4577a6995fec4f639b34f776cf0de0a8b",
+}
+
+
+@pytest.mark.parametrize("shape", list(SSD_FP32_DIGESTS))
+def test_ssd_scan_fp32_output_unchanged(cuda, shape):
+    assert ssd_fp32_digest(cuda, *shape) == SSD_FP32_DIGESTS[shape]
 
 
 # (dtype, b, s, w, lam, atol, rtol): the RecurrentGemma-9B prefill shape, a

@@ -10,6 +10,8 @@ Phases, in the order given:
   q/k 192 with v 128, the edge cases), each against its plain version;
   the main ones timed against their bound and SDPA.
 * ``ssd`` and ``rglru``: phase 3's SSD and RG-LRU scan cases.
+* ``serve``: phase 4, Qwen2-1.5B, Mamba2-370M and RecurrentGemma-9B
+  served at full width and depth in fp32, then prefilled in bf16.
 * ``train``: phase 6, the production trainer on each of
   ``chip_smoke.TRAIN_ARCHS``.
 * ``families``: phase 9, DeepSeek-V2, Grok-1, Qwen2-VL and Whisper
@@ -43,8 +45,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("attention", "ssd", "rglru", "train", "families", "famtrain",
-          "dist", "ep", "dryrun")
+PHASES = ("attention", "ssd", "rglru", "serve", "train", "families",
+          "famtrain", "dist", "ep", "dryrun")
+
+
+def ep_layer(torch, cs):
+    """The dry run's collective bytes of phase 10 (e)'s MoE layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.launch.roofline import moe_component
+    return moe_component(get_config(cs.EP_ARCH),
+                         LogicalMesh(("data", "model"), cs.EP_MESH),
+                         cs.EP_TOKENS, torch.float32)
 
 
 def dist(torch, cs, fa, ref):
@@ -58,18 +70,14 @@ def dist(torch, cs, fa, ref):
         ref_state = cs.dist_reference(ir_run, d)
         losses = ir_run["losses"][:cs.DIST_STEPS]
         del ir_run
-        return cs.phase_dist(torch, fa, ref, ref_state, losses)
+        return cs.phase_dist(torch, fa, ref, ref_state, losses,
+                             ep_layer(torch, cs))
 
 
 def ep(torch, cs):
     """Phase 10 (e) in a launch of its own."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import LogicalMesh
-    from repro_torch.launch.roofline import moe_component
     from repro_torch.runtime.harness import run_ranks
-    layer = moe_component(get_config(cs.EP_ARCH),
-                          LogicalMesh(("data", "model"), cs.EP_MESH),
-                          cs.EP_TOKENS, torch.float32)
+    layer = ep_layer(torch, cs)
     procs = run_ranks("repro_torch.launch.moe_ep",
                       cs.EP_MESH[0] * cs.EP_MESH[1], backend="gloo",
                       device="cuda", timeout=cs.DIST_SWEEP_TIMEOUT,
@@ -115,7 +123,7 @@ def main(argv) -> int:
     from repro_torch.kernels import ssd_scan as sk
 
     print(cs.card_line())
-    _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
+    reports = _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = {"flash": fa, "ssd": sk, "rglru": rk}
     stages = []
@@ -126,8 +134,12 @@ def main(argv) -> int:
         return stages[-1]
     runs = {
         "attention": lambda: cs.phase_attention(torch, fa, ref, gen),
-        "ssd": lambda: cs.phase_ssd(torch, sk, ref, gen),
+        "ssd": lambda: cs.phase_ssd(
+            torch, sk, ref, gen,
+            cs.ptxas_report(reports.get("ssd_scan", ""))),
         "rglru": lambda: cs.phase_rglru(torch, rk, ref, gen),
+        "serve": lambda: {arch: cs.phase_serve(torch, policy, arch)
+                          for arch in cs.ARCHS},
         "train": lambda: cs.phase_train_all(torch, policy, kernels,
                                             stage(families=())),
         "families": lambda: cs.phase_families(torch, policy, fa, ref),
@@ -145,6 +157,9 @@ def main(argv) -> int:
         if name == "families":
             fams, b1, _ = out
             out = {"runs": fams, "b1": b1}
+        elif name == "serve":
+            out = {arch: {"launches": run[0], "bf16": run[1]}
+                   for arch, run in out.items()}
         elif name == "train":
             out = {"runs": out}
         elif name == "famtrain":
