@@ -15,11 +15,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    must raise for a pair the kernel is not built for), the SSD scan (y and
    the final state) and
    the RG-LRU scan (bf16 cases also against the plain version on the same
-   bf16 inputs, output for output).  MLA's pair has a kernel of its own in
-   each type (fp32 register-blocked on the CUDA cores, bf16 on wgmma fed by
-   TMA), each checked at every ragged, windowed and small-grid case of
-   ``attention_cases``; Whisper large-v3's head dim 64 is timed in both
-   types.  The SSD scan's bf16 design (tensor cores) is held at every bf16
+   bf16 inputs, output for output).  bf16 runs one kernel at every head
+   dim (wgmma fed by TMA, a persistent block an SM), checked at every
+   ragged, windowed, small-grid and fused-view case of ``attention_cases``
+   and launched twice on each case's inputs, the two outputs bitwise
+   equal; MLA's pair has a kernel of its own in fp32 (register-blocked on
+   the CUDA cores); Whisper large-v3's head dim 64 is timed in both types.  The SSD scan's bf16 design (tensor cores) is held at every bf16
    case, with ptxas's registers and spills beside its time and the worst
    error of the bf16 cases.  At the main shapes it times the
    kernel's wrapper, the kernels alone where the wrapper prepares their
@@ -32,7 +33,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and held: one a flash-attention or RG-LRU wrapper call, and of the SSD
    kernel alone three in fp32 and two in bf16; these measured counts are
    the ``kernels`` line's ``cuda_launches_per_call``.  The RG-LRU kernel
-   must build without spills; so must both MLA kernels.
+   must build without spills; so must every flash-attention kernel.
 4. serve: full-width, full-depth Qwen2-1.5B (28 layers), then Mamba2-370M
    (48 layers) and RecurrentGemma-9B (38 layers), each fp32 with random
    weights from seed 0 and freed before the next, each answering 4 prompts
@@ -617,10 +618,11 @@ def attention_cases():
          False, None, "bshd"),
         ("fully-masked rows MLA", "bfloat16", 1, 2, 1, 256, 128, (192, 128),
          True, 16, "bhsd"),
-        # each branch of the two MLA kernels (fp32: 64 rows x 64 keys a
-        # tile; bf16: 128 rows x 64 keys on wgmma) in both types, beside the
-        # cases above: Sq, Sk off the tiles, Sq < Sk and Sq > Sk, no key for
-        # rows under a window, non-causal, and a grid smaller than the card
+        # each branch of the MLA fp32 kernel (64 rows x 64 keys a tile) and
+        # of the bf16 kernel at MLA's pair (128 rows x 64 keys on wgmma),
+        # beside the cases above: Sq, Sk off the tiles, Sq < Sk and Sq > Sk,
+        # no key for rows under a window, non-causal, and a grid smaller
+        # than the card
         ("MLA ragged bf16", "bfloat16", 1, 4, 2, 300, 200, (192, 128), True,
          None, "bshd"),
         ("MLA non-causal", "float32", 1, 4, 2, 300, 333, (192, 128), False,
@@ -634,6 +636,23 @@ def attention_cases():
                               ("B1 H2", (1, 2, 2, 512, 512)))),
         ("fully-masked rows MLA fp32", "float32", 1, 2, 1, 256, 128,
          (192, 128), True, 16, "bhsd"),
+        # the bf16 kernel's branches at the other head dims: a grid smaller
+        # than the card, Sq = 1 against Sk = 77, Sq < Sk and Sq > Sk
+        # causal, q, k and v as column views of one (B, S, H, 3D) tensor (a
+        # fused QKV projection's output), and a window that bites at 64 and
+        # 128 (the main cases hold GQA 12/2, 16/1 and 20/20)
+        *((f"{what} D{d} bf16", "bfloat16", *shape, d, True, None, layout)
+          for d in (64, 128, 256)
+          for what, shape, layout in (
+              ("B1 H2", (1, 2, 2, 512, 512), "bshd"),
+              ("1/77", (1, 2, 2, 1, 77), "bshd"),
+              ("Sq < Sk", (1, 4, 2, 100, 333), "bshd"),
+              ("Sq > Sk", (1, 4, 2, 333, 100), "bshd"),
+              ("fused qkv", (2, 6, 6, 300, 300), "fused"))),
+        ("window 128 D64 bf16", "bfloat16", 1, 4, 2, 640, 640, 64, True,
+         128, "bshd"),
+        ("window 128 D128 bf16", "bfloat16", 1, 4, 2, 640, 640, 128, True,
+         128, "bshd"),
     ]
 
 
@@ -684,10 +703,17 @@ def rglru_cases():
 
 def make_inputs(gen, dtype, b, h, kh, sq, sk, d, layout):
     """q, k, v on the card; ``"bshd"`` gives the transposed views the model
-    hands the kernel, ``"bhsd"`` contiguous tensors.  With ``d`` a pair
-    (D, Dv), k and v are the column views of one (.., D + Dv) tensor."""
+    hands the kernel, ``"bhsd"`` contiguous tensors, ``"fused"`` the
+    transposed column views of one (B, S, H, 3D) tensor (needs h == kh and
+    sq == sk).  With ``d`` a pair (D, Dv), k and v are the column views of
+    one (.., D + Dv) tensor."""
     import torch
     d, dv = d if isinstance(d, tuple) else (d, None)
+    if layout == "fused":
+        qkv = torch.randn((b, sq, h, 3 * d), generator=gen,
+                          device="cuda").to(dtype)
+        return tuple(qkv[..., i * d:(i + 1) * d].transpose(1, 2)
+                     for i in range(3))
 
     def one(n, s, width):
         shape = (b, s, n, width) if layout == "bshd" else (b, n, s, width)
@@ -715,6 +741,12 @@ def phase_attention(torch, fa, ref, gen):
         if not bool(torch.isfinite(out).all()):
             fail(f"flash {name}: non-finite output")
         err = (out.float() - want).abs().max().item()
+        if dt == "bfloat16":
+            # the schedule decides which block takes a row, never its
+            # arithmetic: a second launch gives the same bits
+            again = fa.flash_attention(q, k, v, causal=causal, window=window)
+            if not torch.equal(out, again):
+                fail(f"flash {name}: two launches on the same inputs differ")
         if name.startswith("fully-masked rows"):
             # rows 143.. see no key: the mean of v over all keys
             mean_err = (out[0, :, 255].float()
@@ -4308,8 +4340,8 @@ def main() -> int:
     print(f"  ptxas spills: {spills or 'none'}")
     if any(s.startswith("rglru_scan:") for s in spills):
         fail("the RG-LRU kernel spills registers")
-    if any("flash_mla_" in s for s in spills):
-        fail("an MLA attention kernel spills registers")
+    if any(s.startswith("flash_attention:") for s in spills):
+        fail("a flash-attention kernel spills registers")
 
     print("== phase 3: kernels vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -23,31 +23,13 @@
 // V2's MLA prefill (B 4, H = KV = 128, S 512, q/k 192, v 128, causal) is
 // ~43 GFLOP: 0.642 ms.  In bf16 the tensor cores' 989 TFLOP/s make the same
 // work bound by bytes (~0.004, ~0.011 ms, and 0.100 ms for MLA's ~335 MB).
-// So the two types get two designs, and MLA, whose pair is the widest and
-// whose head count fills the card, gets a design of its own in each.
+// So the two types get two designs: in fp32 MLA, whose pair is the widest
+// and whose head count fills the card, has one of its own; in bf16 one
+// kernel, templated on the pair, takes them all.
 //
-// D = 64, 128, 256.  One block owns (batch b, query head h, a tile of query
-// rows); the query tile varies slowest in the (flat) grid, reversed under a
-// causal mask, so every head's heaviest tiles are issued first.
-//
-// bf16: tensor cores, a FlashAttention-2 layout.  A block of 4 warps takes
-// 64 query rows, 16 per warp.  S = Q K^T and O += P V run on
-// mma.sync m16n8k16 (bf16 in, fp32 accumulation; products of bf16 values
-// are exact in fp32, as in the Pallas kernel, which casts to fp32).  K and
-// V tiles sit in shared memory with 16-byte chunks XOR-swizzled by row, so
-// that ldmatrix (.trans for V) reads without bank conflicts, and are double
-// buffered: cp.async brings tile t+1 while tile t is computed, with one
-// barrier per key tile.  The online softmax stays in registers; a row's max
-// reduces over the 4 lanes of a quad with shuffles, its sum once at the
-// end, and only key tiles that hold a masked or ragged pair for the warp's
-// rows compute masks.  P is rounded to bf16 in registers and is the A
-// operand of P V directly; S never goes to shared memory.  Rounding P
-// departs from the Pallas kernel, which keeps P in fp32; at the main shapes
-// the worst error stays under half the 2e-2 tolerance, so P V is one bf16
-// product.  At D <= 128 the warp keeps its Q fragments in registers (64
-// keys a tile); at D = 256 the O accumulator alone is 128 fp32 registers a
-// thread, so Q stays in shared memory and is re-read with ldmatrix per
-// k-step, with 32-key tiles.
+// fp32 at D = 64, 128, 256.  One block owns (batch b, query head h, a tile
+// of query rows); the query tile varies slowest in the (flat) grid, reversed
+// under a causal mask, so every head's heaviest tiles are issued first.
 //
 // fp32: exact, on the CUDA cores (no TF32).  A 16 x TY thread grid; thread
 // (ty, tx) owns rows ty + TY i of both S and O (4 of them), keys tx + 16 j of
@@ -76,24 +58,43 @@
 // is no room to double-buffer the operands (that spills), so the loop's
 // shared-memory latency is hidden by the other warps alone.
 //
-// MLA bf16 (flash_mla_bf16_kernel), bound by bytes: Hopper's own design.
-// One persistent block an SM walks work items (a 128-row query tile of one
-// head); items of one head run side by side on neighbouring blocks, so
-// their K and V come from memory once and from L2 after.  A producer
-// warpgroup (one thread, 40 registers after setmaxnreg) issues TMA loads
-// (cp.async.bulk.tensor, 128-byte swizzle, tensor maps encoded per call
-// from the strides) completed on mbarriers: Q double buffered across items,
-// K (3 slabs of 64 keys x 64 d) and V (2 slabs) in a 2-stage ring that runs
-// on across items, so the next item's loads overlap this one's work.  Two
-// consumer warpgroups (232 registers) own 64 query rows each: Q's A
-// fragments are loaded once an item into registers (ldmatrix), S = Q K^T
-// is wgmma m64n64k16 with A from registers and K from shared memory, P is
-// rounded to bf16 in registers and O += P V is wgmma m64n128k16 with V
-// N-major through a transposed descriptor.  A warpgroup skips the key
-// tiles its rows cannot see.  O is staged in the warp's own rows of the Q
-// buffer and leaves in whole 256-byte rows.  Both matter more here than
-// the products' schedule: with Q read from shared memory too, S alone
-// would want all of shared memory's 128 bytes a cycle.
+// bf16 at every pair (flash_bf16_kernel<Bf16Tiles<D, Dv>>), bound by bytes:
+// Hopper's own design.  One persistent block an SM walks work items (a
+// 128-row query tile of one head).  A producer warpgroup (one thread, 40
+// registers after setmaxnreg) issues TMA loads (cp.async.bulk.tensor,
+// 128-byte swizzle, 64-column slabs, tensor maps encoded per call from the
+// strides; tools/tensormap_cost.cu times that) completed on mbarriers: Q
+// (double buffered across items where shared memory allows; at D = 256 an
+// item's first ring stages load before its Q, which waits for the last
+// item's epilogue) and K and V, 64 keys a stage, in a 2-stage ring that
+// runs on across items, so the next item's loads overlap this one's work.
+// Two consumer warpgroups (232 registers) own 64 query rows each.  S = Q K^T
+// is wgmma m64n64k16 with K from shared memory; up to D = 192 Q's A
+// fragments are loaded once an item into registers (ldmatrix), while at
+// D = 256 the O accumulator alone takes 128 registers a thread, so S reads
+// Q from shared memory too.  P is rounded to bf16 in registers and O += P V
+// is one wgmma m64n{Dv}k16 a 16-key step, V N-major through a transposed
+// descriptor.  Up to D = 192 a warpgroup issues S of tile t before P V of
+// tile t - 1 and runs the softmax of t while P V is in flight; at D = 256
+// that second P spills, so the products go one at a time, and the other
+// warpgroup's products fill the gaps.  (Products of bf16 values are exact
+// in fp32, as in the Pallas kernel, which casts to fp32; rounding P departs
+// from it, which keeps P in fp32, and at the main shapes the worst error
+// stays under half the 2e-2 tolerance.)  A warpgroup skips the key tiles
+// its rows cannot see.  O is staged in the warp's own rows of the Q buffer
+// (32-bit shared addresses: generic ones spilled at D = 256) and leaves in
+// whole rows.
+// The schedule: where K and V together fit a third of L2 (every prefill but
+// MLA's), the items go heaviest first (the tile's rank varies slowest), and
+// round k deals them to blocks 0..G-1 when k is even and G-1..0 when it is
+// odd, so a round's lightest items land on the blocks that took the
+// heaviest before; at the main shapes no block then walks more key tiles
+// than the least whole number it could.  Where K and V do not fit (MLA's
+// 168 MB), the query tiles of one head are neighbours and a round's G
+// blocks take G neighbouring items, so that each head's K and V come from
+// memory once and from L2 after.  The schedule is static: B1 runs on
+// several streams at once (the async executor's stages), which a counter
+// in device memory shared between launches would not survive.
 //
 // Key tiles that a whole query tile cannot see (above the causal diagonal,
 // before the window) are skipped.  That is exact for every row with at
@@ -202,8 +203,9 @@ __device__ __forceinline__ float masked_logit(const Params& p, float s,
   return s * scale;
 }
 
-// masked_logit for the MLA kernels, with selects instead of branches, so
-// that a tile's 32 logits a thread compile to straight-line code.
+// masked_logit for the MLA fp32 and the bf16 kernels, with selects instead
+// of branches, so that a tile's 32 logits a thread compile to straight-line
+// code.
 __device__ __forceinline__ float masked_logit_sel(const Params& p, float s,
                                                   float scale, int qi,
                                                   int ki) {
@@ -231,213 +233,6 @@ __device__ __forceinline__ bool rows_skip_tile(const Params& p, int lo, int hi,
   const bool masked = (p.causal && k0 > hi) ||
                       (p.window > 0 && k0 + bk - 1 <= lo - p.window);
   return masked && has_key(p, hi);
-}
-
-// ---------------------------------------------------------------- bf16 ---
-
-constexpr int BF_BQ = 64;        // query rows a block, 16 a warp
-constexpr int BF_THREADS = 128;  // 4 warps
-
-// Element offset of 16-byte chunk c of row r in a swizzled (rows, D) bf16
-// tile: the chunk index is XORed with the row's low 3 bits.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
-
-// Issue the copies of rows [row0, row0 + nrows) of a (rows, D) bf16 slab
-// into an R x D swizzled tile; rows past nrows are zero-filled.
-template <int D, int R>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               int64_t ld, int row0,
-                                               int nrows) {
-  constexpr int DC = D / 8;
-  for (int i = threadIdx.x; i < R * DC; i += BF_THREADS) {
-    const int r = i / DC, c = i % DC;
-    const bool ok = r < nrows;
-    cp_async16(dst + swz<D>(r, c),
-               ok ? src + int64_t(row0 + r) * ld + c * 8 : src, ok);
-  }
-}
-
-template <int D, int DV, int BK>
-constexpr size_t bf16_smem_bytes() {
-  return sizeof(bf16) *
-         (size_t(BF_BQ) * D + size_t(2) * BK * D + size_t(2) * BK * DV);
-}
-
-// D: the head dim of q and k; DV: that of v and the output.
-template <int D, int DV, int BK>
-__global__ void __launch_bounds__(BF_THREADS)
-    flash_bf16_kernel(const Params p) {
-  static_assert(D % 64 == 0 && DV % 64 == 0 && BK % 16 == 0, "tile shape");
-  constexpr int NT = BK / 8;   // 8-key n-tiles of S
-  constexpr int DT = DV / 8;   // 8-column n-tiles of O
-  constexpr int KS = D / 16;   // k-steps of Q K^T
-  // Q's fragments (KS x 4 registers) beside O's (DT x 4) and S's (NT x 4)
-  constexpr bool QREG = D + DV <= 320;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x D
-  bf16* Ks = Qs + BF_BQ * D;                     // 2 x BK x D
-  bf16* Vs = Ks + 2 * BK * D;                    // 2 x BK x DV
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, c4 = lane % 4;
-  const BlockIndex bi = block_index(p);
-  const int q0 = bi.qt * BF_BQ;
-  const int h = bi.h, b = bi.b;
-  const int kvh = h / (p.H / p.KH);
-  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  bf16* op = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  const int rows = min(BF_BQ, p.Sq - q0);
-  const KeyRange kr = key_range<BK>(p, q0, rows);
-
-  load_tile_bf16<D, BF_BQ>(Qs, qp, p.q_ss, q0, rows);
-  {
-    const int k0 = kr.t0 * BK, kcols = min(BK, p.Sk - k0);
-    load_tile_bf16<D, BK>(Ks, kp, p.k_ss, k0, kcols);
-    load_tile_bf16<DV, BK>(Vs, vp, p.v_ss, k0, kcols);
-  }
-  cp_async_commit();
-
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  // rows g and g + 8 of the warp's 16: running max (log2 units) and this
-  // thread's share of the normalizer
-  float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
-  uint32_t qf[QREG ? KS : 1][4];
-  const float scale2 = p.scale * LOG2E;
-  const int wrow = warp * 16;
-
-  for (int t = 0; t < kr.nt; ++t) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile t has landed; tile t - 1 is no longer read
-    if (t + 1 < kr.nt) {
-      const int k1 = (kr.t0 + t + 1) * BK, kcols = min(BK, p.Sk - k1);
-      const int nb = (t + 1) & 1;
-      load_tile_bf16<D, BK>(Ks + nb * BK * D, kp, p.k_ss, k1, kcols);
-      load_tile_bf16<DV, BK>(Vs + nb * BK * DV, vp, p.v_ss, k1, kcols);
-    }
-    cp_async_commit();
-    if constexpr (QREG) {
-      if (t == 0) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          hopper::ldmatrix_x4(
-              qf[kk], Qs + swz<D>(wrow + lane % 16, 2 * kk + lane / 16));
-      }
-    }
-    const bf16* Kb = Ks + (t & 1) * BK * D;
-    const bf16* Vb = Vs + (t & 1) * BK * DV;
-    const int k0 = (kr.t0 + t) * BK;
-
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4];
-      if constexpr (QREG) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
-      } else {
-        hopper::ldmatrix_x4(qa,
-                            Qs + swz<D>(wrow + lane % 16, 2 * kk + lane / 16));
-      }
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kb[4];
-        hopper::ldmatrix_x4(
-            kb, Kb + swz<D>(8 * j + lane % 8 + 8 * (lane / 16),
-                            2 * kk + (lane / 8) % 2));
-        hopper::mma_bf16(s[j], qa, kb[0], kb[1]);
-        hopper::mma_bf16(s[j + 1], qa, kb[2], kb[3]);
-      }
-    }
-
-    // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    const bool masked = tile_masked(p, q0 + wrow, q0 + wrow + 15, k0, BK);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = q0 + wrow + g + 8 * (e / 2);
-        const int ki = k0 + 8 * j + 2 * c4 + e % 2;
-        s[j][e] = masked ? masked_logit(p, s[j][e], scale2, qi, ki)
-                         : s[j][e] * scale2;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m[e / 2]);
-        l[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // O += P V, P from the S accumulators as the A operand
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = hopper::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = hopper::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = hopper::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = hopper::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t vb[4];
-        hopper::ldmatrix_x4_trans(
-            vb, Vb + swz<DV>(16 * kk + lane % 8 + 8 * ((lane / 8) % 2),
-                             j + lane / 16));
-        hopper::mma_bf16(o[j], pa, vb[0], vb[1]);
-        hopper::mma_bf16(o[j + 1], pa, vb[2], vb[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = (l[r] == 0.f) ? 1.f : l[r];
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wrow + g + 8 * r;
-    if (row < rows) {
-      bf16* orow = op + int64_t(q0 + row) * p.o_ss;
-#pragma unroll
-      for (int j = 0; j < DT; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * c4) =
-            __floats2bfloat162_rn(o[j][2 * r] / l[r], o[j][2 * r + 1] / l[r]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------- fp32 ---
@@ -473,29 +268,29 @@ struct F32Tiles<256> {
   static constexpr int BQ = 32, BK = 32, TY = 8;
 };
 
-template <int D, int DV>
+template <int D>
 constexpr size_t f32_smem_bytes() {
   using C = F32Tiles<D>;
-  return sizeof(float) * (size_t(C::BQ) * D + size_t(C::BK) * D +
-                          size_t(C::BK) * DV + size_t(C::BQ) * C::BK);
+  return sizeof(float) * (size_t(C::BQ) * D + 2 * size_t(C::BK) * D +
+                          size_t(C::BQ) * C::BK);
 }
 
-// D: the head dim of q and k; DV: that of v and the output.
-template <int D, int DV>
+// D: the head dim of q, k, v and the output.
+template <int D>
 __global__ void __launch_bounds__(16 * F32Tiles<D>::TY, 2)
     flash_f32_kernel(const Params p) {
   constexpr int BQ = F32Tiles<D>::BQ, BK = F32Tiles<D>::BK;
   constexpr int TY = F32Tiles<D>::TY, THREADS = 16 * TY;
   constexpr int R = BQ / TY;   // rows a thread owns
   constexpr int CK = BK / 16;  // keys a thread owns in S
-  constexpr int CV = DV / 64;  // float4 columns a thread owns in O
-  static_assert(R == 4 && D % 64 == 0 && DV % 64 == 0, "tile shape");
+  constexpr int CV = D / 64;   // float4 columns a thread owns in O
+  static_assert(R == 4 && D % 64 == 0, "tile shape");
 
   extern __shared__ __align__(128) float smem[];
-  float* Qs = smem;          // BQ x D
-  float* Ks = Qs + BQ * D;   // BK x D, swizzled
-  float* Vs = Ks + BK * D;   // BK x DV
-  float* Ps = Vs + BK * DV;  // BQ x BK
+  float* Qs = smem;         // BQ x D
+  float* Ks = Qs + BQ * D;  // BK x D, swizzled
+  float* Vs = Ks + BK * D;  // BK x D
+  float* Ps = Vs + BK * D;  // BQ x BK
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const BlockIndex bi = block_index(p);
@@ -533,7 +328,7 @@ __global__ void __launch_bounds__(16 * F32Tiles<D>::TY, 2)
     const int k0 = (kr.t0 + t) * BK, kcols = min(BK, p.Sk - k0);
     cp_async_wait<0>();
     __syncthreads();  // K (and Q) landed; the last P V is done with V and P
-    load_tile_f32<DV, BK, THREADS, false>(Vs, vp, p.v_ss, k0, kcols);
+    load_tile_f32<D, BK, THREADS, false>(Vs, vp, p.v_ss, k0, kcols);
     cp_async_commit();
 
     float s[R][CK];
@@ -621,7 +416,7 @@ __global__ void __launch_bounds__(16 * F32Tiles<D>::TY, 2)
         float4 vv[CV];
 #pragma unroll
         for (int j = 0; j < CV; ++j)
-          vv[j] = *reinterpret_cast<const float4*>(Vs + (c + kk) * DV +
+          vv[j] = *reinterpret_cast<const float4*>(Vs + (c + kk) * D +
                                                    4 * tx + 64 * j);
 #pragma unroll
         for (int i = 0; i < R; ++i) {
@@ -928,81 +723,110 @@ __global__ void __launch_bounds__(MlaF32::THREADS, 2)
   }
 }
 
-// ------------------------------------------------------------ MLA bf16 ---
+// ---------------------------------------------------------------- bf16 ---
 
-// DeepSeek-V2's MLA pair in bf16 on wgmma: a persistent block of two
-// consumer warpgroups, 64 query rows each, and a producer warpgroup whose
-// first thread keeps TMA loads in flight.  The block walks one work item
-// (query tile, head, batch) a round (work_item); Q is double buffered and
-// the K / V ring runs on across items, so the next item's loads overlap
-// this one's products and epilogue.
-struct MlaBf16 {
+// The bf16 kernel's tiles at head dims (D of q and k, DV of v): a
+// persistent block of two consumer warpgroups, 64 query rows each, and a
+// producer warpgroup whose first thread keeps TMA loads in flight.  Every
+// tile is a row of 128-byte column slabs (64 bf16 columns each) in the
+// 128-byte swizzle.
+template <int D_, int DV_>
+struct Bf16Tiles {
+  static constexpr int D = D_, DV = DV_;
   static constexpr int WGS = 2;  // consumer warpgroups, 64 query rows each
-  static constexpr int D = 192, DV = 128, BQ = 64 * WGS, BK = 64;
+  static constexpr int BQ = 64 * WGS, BK = 64;
   // a producer warpgroup (one thread issues the loads) after the consumers
   static constexpr int CONSUMERS = 128 * WGS, THREADS = CONSUMERS + 128;
   // registers a thread: the producer's 40 leave the consumers 232
   static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
   static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS <= 65536,
                 "registers");
-  static constexpr int STAGES = 2;  // depth of the K / V ring
-  // 128-byte column slabs: Q 3 of 128 x 64, a K stage 3 of 64 x 64, a V
-  // stage 2 of 64 x 64
-  static constexpr int Q_SLAB = BQ * 64 * 2, KV_SLAB = BK * 64 * 2;
-  static constexpr int Q_BYTES = 3 * Q_SLAB;   // 48 KB
-  static constexpr int K_BYTES = 3 * KV_SLAB;  // 24 KB
-  static constexpr int V_BYTES = 2 * KV_SLAB;  // 16 KB
-  static constexpr int TILES = 2 * Q_BYTES + STAGES * (K_BYTES + V_BYTES);
-  // tiles (176 KB at 2 stages), the mbarriers, and slack to align the
-  // tiles to 1024 B
-  static constexpr size_t SMEM = 1024 + TILES + (4 + 4 * STAGES) * 8;
+  // Q's A fragments (D / 4 registers a thread) fit beside O (DV / 2), S
+  // (BK / 2) and P (BK / 4) up to D + DV = 320; past that S reads Q from
+  // shared memory
+  static constexpr bool QREG = D + DV <= 320;
+  // S of one key tile beside P V of the last (a second P in registers)
+  // where that fits too: not at D = 256, where it spills
+  static constexpr bool OVERLAP = QREG;
+  static constexpr int DS = D / 64, DVS = DV / 64;  // slabs of q / k and v
+  static constexpr int STAGES = 2;                  // depth of the K / V ring
+  static constexpr int Q_SLAB = BQ * 128, KV_SLAB = BK * 128;
+  static constexpr int Q_BYTES = DS * Q_SLAB;
+  static constexpr int K_BYTES = DS * KV_SLAB, V_BYTES = DVS * KV_SLAB;
+  static constexpr int RING = STAGES * (K_BYTES + V_BYTES);
+  // Q double buffered across items where that fits (not at D = 256: 64 KB
+  // a buffer beside a 128 KB ring)
+  static constexpr int QBUFS = 2 * Q_BYTES + RING <= 200 * 1024 ? 2 : 1;
+  static constexpr int TILES = QBUFS * Q_BYTES + RING;
+  // tiles, the mbarriers, and slack to align the tiles to 1024 B
+  static constexpr size_t SMEM = 1024 + TILES + (2 * QBUFS + 4 * STAGES) * 8;
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(D % 64 == 0 && DV % 64 == 0 && DV <= D && DV <= 256,
+                "head dims: O is staged in Q's buffer, P V is one wgmma");
 };
 
-struct MlaBf16Args {
+struct Bf16Args {
   CUtensorMap q, k, v;  // (D or DV, S, heads, B) bf16, 128-byte swizzle
   Params p;
+  int heavy_first;  // the schedule (round_item, work_item)
 };
 
-// Work item `i` (< nq H B) of the MLA bf16 kernel: the query tiles of one
-// head are neighbours, heaviest first under a causal mask.  Round k gives
-// block c item k G + (c + k) % G (G blocks), so the blocks of a round hold
-// G neighbouring items (few heads: their K and V are read from memory once
-// and from L2 after) and each block's items cycle through the tiles.
-__device__ __forceinline__ int round_item(int k) {
-  return k * gridDim.x + (blockIdx.x + k) % gridDim.x;
+// The work item that this block takes in round k (>= the item count when it
+// has none).  heavy_first: block c takes item k G + c when k is even and
+// k G + G - 1 - c when it is odd (G blocks); else k G + (c + k) % G.
+__device__ __forceinline__ int round_item(int k, bool heavy_first) {
+  const int g = gridDim.x, c = blockIdx.x;
+  return k * g + (heavy_first ? ((k & 1) ? g - 1 - c : c) : (c + k) % g);
 }
-__device__ __forceinline__ BlockIndex work_item(const Params& p, int nq,
-                                                int i) {
-  const int bh = i / nq, t = i % nq;
+// Work item i (< nq H B): heavy_first, the tile's rank varies slowest, so
+// every head's heaviest tiles come first (block_index's order); else the
+// query tiles of one head are neighbours, heaviest first, and a round's G
+// neighbouring items cover few heads.
+__device__ __forceinline__ BlockIndex work_item(const Params& p, int nq, int i,
+                                                bool heavy_first) {
+  const int hb = p.H * p.B;
+  const int bh = heavy_first ? i % hb : i / nq;
+  const int t = heavy_first ? i / hb : i % nq;
   return {p.causal ? nq - 1 - t : t, bh % p.H, bh / p.H};
 }
 
-__global__ void __launch_bounds__(MlaBf16::THREADS, 1)
-    flash_mla_bf16_kernel(const __grid_constant__ MlaBf16Args args) {
-  constexpr int BQ = MlaBf16::BQ, BK = MlaBf16::BK, DV = MlaBf16::DV;
-  constexpr int Q_SLAB = MlaBf16::Q_SLAB, KV_SLAB = MlaBf16::KV_SLAB;
-  constexpr int NS = MlaBf16::STAGES;
+// O (64 x DV of a warpgroup, fp32) += P (in registers) V (16 keys, N-major)
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (DV == 64) hopper::wgmma_m64n64k16_rs_tn(o, a, b);
+  else if constexpr (DV == 128) hopper::wgmma_m64n128k16_rs_tn(o, a, b);
+  else hopper::wgmma_m64n256k16_rs_tn(o, a, b);
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+    flash_bf16_kernel(const __grid_constant__ Bf16Args args) {
+  constexpr int BQ = T::BQ, BK = T::BK, D = T::D, DV = T::DV;
+  constexpr int Q_SLAB = T::Q_SLAB, KV_SLAB = T::KV_SLAB;
+  constexpr int QB = T::QBUFS, NS = T::STAGES;
   const Params& p = args.p;
+  const bool heavy = args.heavy_first != 0;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* Qs = base;                                     // 2 buffers
-  unsigned char* Ks = Qs + 2 * MlaBf16::Q_BYTES;                // NS stages
-  unsigned char* Vs = Ks + NS * MlaBf16::K_BYTES;               // NS stages
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(base + MlaBf16::TILES);
-  uint64_t* empty_q = full_q + 2;   // [2]: every consumer warp is done
-  uint64_t* full_k = empty_q + 2;   // [NS]: K of the stage has landed
-  uint64_t* full_v = full_k + NS;   // [NS]
-  uint64_t* empty_k = full_v + NS;  // [NS]
+  unsigned char* Qs = base;                  // QB buffers
+  unsigned char* Ks = Qs + QB * T::Q_BYTES;  // NS stages
+  unsigned char* Vs = Ks + NS * T::K_BYTES;  // NS stages
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(base + T::TILES);
+  uint64_t* empty_q = full_q + QB;   // [QB]: every consumer warp is done
+  uint64_t* full_k = empty_q + QB;   // [NS]: K of the stage has landed
+  uint64_t* full_v = full_k + NS;    // [NS]
+  uint64_t* empty_k = full_v + NS;   // [NS]
   uint64_t* empty_v = empty_k + NS;  // [NS]
 
   const int nq = (p.Sq + BQ - 1) / BQ, items = nq * p.H * p.B;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr uint32_t CONSUMER_WARPS = MlaBf16::CONSUMERS / 32;
+  constexpr uint32_t CONSUMER_WARPS = T::CONSUMERS / 32;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < QB; ++i) {
       mbar_init(full_q + i, 1);
       mbar_init(empty_q + i, CONSUMER_WARPS);
     }
@@ -1016,38 +840,46 @@ __global__ void __launch_bounds__(MlaBf16::THREADS, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x >= MlaBf16::CONSUMERS) {
+  if (threadIdx.x >= T::CONSUMERS) {
     // producer: one thread issues every load; a buffer is refilled once
     // all 8 consumer warps have released it
-    hopper::setmaxnreg_dec<MlaBf16::PRODUCER_REGS>();
-    if (threadIdx.x == MlaBf16::CONSUMERS) {
+    hopper::setmaxnreg_dec<T::PRODUCER_REGS>();
+    if (threadIdx.x == T::CONSUMERS) {
       hopper::prefetch_tensormap(&args.q);
       hopper::prefetch_tensormap(&args.k);
       hopper::prefetch_tensormap(&args.v);
       int tg = 0;  // key tiles loaded so far, across items
-      for (int j = 0, i = round_item(0); i < items; i = round_item(++j)) {
-        const BlockIndex w = work_item(p, nq, i);
+      for (int j = 0, i = round_item(0, heavy); i < items;
+           i = round_item(++j, heavy)) {
+        const BlockIndex w = work_item(p, nq, i, heavy);
         const int q0 = w.qt * BQ, kvh = w.h / (p.H / p.KH);
         const KeyRange kr = key_range<BK>(p, q0, min(BQ, p.Sq - q0));
-        const int qb = j & 1;
-        mbar_wait(empty_q + qb, ((j >> 1) & 1) ^ 1);
-        mbar_arrive_expect_tx(full_q + qb, MlaBf16::Q_BYTES);
-        for (int c = 0; c < 3; ++c)
-          tma_load_4d(Qs + qb * MlaBf16::Q_BYTES + c * Q_SLAB, &args.q,
-                      full_q + qb, 64 * c, q0, w.h, w.b);
-        for (int t = 0; t < kr.nt; ++t, ++tg) {
+        const int qb = j % QB;
+        // with one Q buffer, Q waits for the last item's epilogue: the
+        // item's first ring stages go first, so they load meanwhile
+        const int lead = QB == 1 ? min(NS, kr.nt) : 0;
+        for (int t = 0; t <= kr.nt; ++t) {
+          if (t == lead) {
+            mbar_wait(empty_q + qb, ((j / QB) & 1) ^ 1);
+            mbar_arrive_expect_tx(full_q + qb, T::Q_BYTES);
+            for (int c = 0; c < T::DS; ++c)
+              tma_load_4d(Qs + qb * T::Q_BYTES + c * Q_SLAB, &args.q,
+                          full_q + qb, 64 * c, q0, w.h, w.b);
+          }
+          if (t == kr.nt) break;
           const int s = tg % NS, k0 = (kr.t0 + t) * BK;
           const uint32_t par = ((tg / NS) & 1) ^ 1;
           mbar_wait(empty_k + s, par);
-          mbar_arrive_expect_tx(full_k + s, MlaBf16::K_BYTES);
-          for (int c = 0; c < 3; ++c)
-            tma_load_4d(Ks + s * MlaBf16::K_BYTES + c * KV_SLAB, &args.k,
+          mbar_arrive_expect_tx(full_k + s, T::K_BYTES);
+          for (int c = 0; c < T::DS; ++c)
+            tma_load_4d(Ks + s * T::K_BYTES + c * KV_SLAB, &args.k,
                         full_k + s, 64 * c, k0, kvh, w.b);
           mbar_wait(empty_v + s, par);
-          mbar_arrive_expect_tx(full_v + s, MlaBf16::V_BYTES);
-          for (int c = 0; c < 2; ++c)
-            tma_load_4d(Vs + s * MlaBf16::V_BYTES + c * KV_SLAB, &args.v,
+          mbar_arrive_expect_tx(full_v + s, T::V_BYTES);
+          for (int c = 0; c < T::DVS; ++c)
+            tma_load_4d(Vs + s * T::V_BYTES + c * KV_SLAB, &args.v,
                         full_v + s, 64 * c, k0, kvh, w.b);
+          ++tg;
         }
       }
     }
@@ -1057,17 +889,19 @@ __global__ void __launch_bounds__(MlaBf16::THREADS, 1)
   // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of a tile, its
   // warp w rows 16 w .. 16 w + 15 of those; g = lane / 4 and c4 = lane % 4
   // place a thread in the m16n8 fragments
-  hopper::setmaxnreg_inc<MlaBf16::CONSUMER_REGS>();
+  hopper::setmaxnreg_inc<T::CONSUMER_REGS>();
   const int wg = warp / 4, w = warp % 4;
   const int g = lane / 4, c4 = lane % 4;
   const float scale2 = p.scale * LOG2E;
   int tg = 0;  // key tiles consumed so far, across items
-  for (int j = 0, i = round_item(0); i < items; i = round_item(++j)) {
-    const BlockIndex item = work_item(p, nq, i);
+  for (int j = 0, i = round_item(0, heavy); i < items;
+       i = round_item(++j, heavy)) {
+    const BlockIndex item = work_item(p, nq, i, heavy);
     const int q0 = item.qt * BQ, rows = min(BQ, p.Sq - q0);
     const KeyRange kr = key_range<BK>(p, q0, rows);
     const int wrow = 64 * wg + 16 * w;
-    const int qb = j & 1;
+    const int qb = j % QB;
+    unsigned char* Qb = Qs + qb * T::Q_BYTES;
 
     float o[DV / 2];
 #pragma unroll
@@ -1075,148 +909,236 @@ __global__ void __launch_bounds__(MlaBf16::THREADS, 1)
     // rows g and g + 8 of the warp's 16: running max (log2 units) and this
     // thread's share of the normalizer
     float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
-    mbar_wait(full_q + qb, (j >> 1) & 1);
-    // Q's A fragments of the 12 k-steps stay in registers for the item, so
-    // that S reads only K from shared memory: lanes 0-15 give rows 0-15 of
-    // the warp's 16 at the k-step's first 8 columns, lanes 16-31 the next
-    // 8, in the 128-byte swizzle (chunk c of row r at c ^ (r & 7))
-    uint32_t qf[12][4];
+    mbar_wait(full_q + qb, (j / QB) & 1);
+    // Q's A fragments of the D / 16 k-steps stay in registers for the item
+    // (QREG), so that S reads only K from shared memory: lanes 0-15 give
+    // rows 0-15 of the warp's 16 at the k-step's first 8 columns, lanes
+    // 16-31 the next 8, in the 128-byte swizzle (chunk c of row r at
+    // c ^ (r & 7))
+    uint32_t qf[T::QREG ? D / 16 : 1][4];
+    if constexpr (T::QREG) {
 #pragma unroll
-    for (int kk = 0; kk < 12; ++kk) {
-      const int row = wrow + lane % 16, chunk = 2 * (kk % 4) + lane / 16;
-      hopper::ldmatrix_x4(qf[kk], Qs + qb * MlaBf16::Q_BYTES +
-                                      (kk / 4) * Q_SLAB + row * 128 +
-                                      16 * (chunk ^ (row & 7)));
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int row = wrow + lane % 16, chunk = 2 * (kk % 4) + lane / 16;
+        hopper::ldmatrix_x4(qf[kk], Qb + (kk / 4) * Q_SLAB + row * 128 +
+                                        16 * (chunk ^ (row & 7)));
+      }
     }
-    for (int t = 0; t < kr.nt; ++t, ++tg) {
-      const int s = tg % NS, k0 = (kr.t0 + t) * BK;
-      const uint32_t par = (tg / NS) & 1;
-      const bool skip = rows_skip_tile(p, q0 + 64 * wg, q0 + 64 * wg + 63, k0,
-                                       BK);
-      float sacc[BK / 2], alpha[2];
-      uint32_t pa[BK / 16][4];
-
-      mbar_wait(full_k + s, par);
-      if (!skip) {
-        // S = Q K^T: 12 k-steps of 16 along d, 4 in each 128-byte slab of
-        // K; descriptors count 16-byte units: k-step kk starts kk % 4 times
-        // 32 bytes into slab kk / 4
-        const uint64_t dk =
-            wgmma_desc_sw128(Ks + s * MlaBf16::K_BYTES, 16, 1024);
-        wgmma_fence();
+    // The warpgroup's tiles are [ta, tb): it skips the ones before (under
+    // a window) and after (above the diagonal) that its rows cannot see,
+    // releasing their stages unread.  In between (OVERLAP), S of tile t is
+    // issued before P V of tile t - 1, which stays in flight while the
+    // softmax of tile t runs: the exponentials overlap the tensor cores
+    // within the warpgroup too.  No product sits on a branch inside the
+    // loop, which would make ptxas serialize them.
+    const int tg0 = tg;
+    auto stage = [&](int t) { return (tg0 + t) % NS; };
+    auto phase = [&](int t) { return uint32_t((tg0 + t) / NS) & 1; };
+    auto skips = [&](int t) {
+      return rows_skip_tile(p, q0 + 64 * wg, q0 + 64 * wg + 63,
+                            (kr.t0 + t) * BK, BK);
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    auto pass = [&](int t) {
+      mbar_wait(full_k + stage(t), phase(t));
+      release(empty_k + stage(t));
+      mbar_wait(full_v + stage(t), phase(t));
+      release(empty_v + stage(t));
+    };
+    // S = Q K^T: D / 16 k-steps of 16 along d, 4 in each 128-byte slab;
+    // descriptors count 16-byte units: k-step kk starts kk % 4 times 32
+    // bytes into slab kk / 4
+    auto issue_s = [&](float (&sacc)[BK / 2], int t) {
+      const uint64_t dk =
+          wgmma_desc_sw128(Ks + stage(t) * T::K_BYTES, 16, 1024);
+      if constexpr (T::QREG) {
 #pragma unroll
-        for (int kk = 0; kk < 12; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           hopper::wgmma_m64n64k16_rs(
               sacc, qf[kk], dk + (kk / 4) * (KV_SLAB / 16) + 2 * (kk % 4),
               kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        hopper::fence_regs(sacc);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty_k + s);
-
-      if (!skip) {
-        // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3);
-        // sacc[4 jt + e] is column 8 jt + 2 c4 + e % 2
-        const bool masked = tile_masked(p, q0 + wrow, q0 + wrow + 15, k0, BK);
-        float mx[2];
-        if (masked) {
+      } else {
+        // the warpgroup's 64 rows of Q, 8 KB into each slab
+        const uint64_t dq = wgmma_desc_sw128(Qb + wg * 64 * 128, 16, 1024);
 #pragma unroll
-          for (int e = 0; e < BK / 2; ++e)
-            sacc[e] = masked_logit_sel(
-                p, sacc[e], scale2, q0 + wrow + g + 8 * ((e % 4) / 2),
-                k0 + 8 * (e / 4) + 2 * c4 + e % 2);
-        }
-        mx[0] = mx[1] = -INFINITY;
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_m64n64k16_ss(
+              sacc, dq + (kk / 4) * (Q_SLAB / 16) + 2 * (kk % 4),
+              dk + (kk / 4) * (KV_SLAB / 16) + 2 * (kk % 4), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V: V is N-major (its DV columns contiguous), 64-column slabs
+    // KV_SLAB apart, 8-key groups 1024 B apart, 16 keys a k-step
+    uint32_t pa[BK / 16][4];
+    auto issue_pv = [&](int t) {
+      const uint64_t dv =
+          wgmma_desc_sw128(Vs + stage(t) * T::V_BYTES, KV_SLAB, 1024);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_pv<DV>(o, pa[kk], dv + kk * (16 * 128 / 16));
+      wgmma_commit();
+    };
+    // the online softmax of tile t in place, on rows g (e = 0, 1) and g + 8
+    // (e = 2, 3): sacc[4 jt + e] is column 8 jt + 2 c4 + e % 2; masks only
+    // where the warp's rows meet one
+    auto softmax = [&](float (&sacc)[BK / 2], float (&alpha)[2], int t) {
+      const int k0 = (kr.t0 + t) * BK;
+      const bool masked = tile_masked(p, q0 + wrow, q0 + wrow + 15, k0, BK);
+      float mx[2];
+      if (masked) {
 #pragma unroll
         for (int e = 0; e < BK / 2; ++e)
-          mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], sacc[e]);
+          sacc[e] = masked_logit_sel(
+              p, sacc[e], scale2, q0 + wrow + g + 8 * ((e % 4) / 2),
+              k0 + 8 * (e / 4) + 2 * c4 + e % 2);
+      }
+      mx[0] = mx[1] = -INFINITY;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          if (!masked) mx[r] *= scale2;  // unmasked logits are unscaled yet
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          mx[r] = fmaxf(mx[r], m[r]);
-          alpha[r] = hopper::ex2(m[r] - mx[r]);
-          m[r] = mx[r];
-          l[r] *= alpha[r];
-        }
+      for (int e = 0; e < BK / 2; ++e)
+        mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], sacc[e]);
 #pragma unroll
-        for (int e = 0; e < BK / 2; ++e) {
-          float& x = sacc[e];
-          x = hopper::ex2(masked ? x - m[(e % 4) / 2]
-                                 : fmaf(x, scale2, -m[(e % 4) / 2]));
-          l[(e % 4) / 2] += x;
-        }
-        if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
+      for (int r = 0; r < 2; ++r) {
+        if (!masked) mx[r] *= scale2;  // unmasked logits are unscaled yet
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(mx[r], m[r]);
+        alpha[r] = hopper::ex2(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
 #pragma unroll
-          for (int jt = 0; jt < DV / 8; ++jt) {
-            o[4 * jt] *= alpha[0];
-            o[4 * jt + 1] *= alpha[0];
-            o[4 * jt + 2] *= alpha[1];
-            o[4 * jt + 3] *= alpha[1];
-          }
-        }
-        // P in bf16 as the A fragments of P V, 16 keys a k-step
+      for (int e = 0; e < BK / 2; ++e) {
+        float& x = sacc[e];
+        x = hopper::ex2(masked ? x - m[(e % 4) / 2]
+                               : fmaf(x, scale2, -m[(e % 4) / 2]));
+        l[(e % 4) / 2] += x;
+      }
+    };
+    // O rescaled by alpha (once P V is done with it), P in bf16 as the A
+    // fragments of P V, 16 keys a k-step
+    auto rescale_and_pack = [&](const float (&sacc)[BK / 2],
+                                const float (&alpha)[2]) {
+      if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          const float* s0 = sacc + 8 * kk;
-          pa[kk][0] = hopper::pack_bf16(s0[0], s0[1]);
-          pa[kk][1] = hopper::pack_bf16(s0[2], s0[3]);
-          pa[kk][2] = hopper::pack_bf16(s0[4], s0[5]);
-          pa[kk][3] = hopper::pack_bf16(s0[6], s0[7]);
+        for (int jt = 0; jt < DV / 8; ++jt) {
+          o[4 * jt] *= alpha[0];
+          o[4 * jt + 1] *= alpha[0];
+          o[4 * jt + 2] *= alpha[1];
+          o[4 * jt + 3] *= alpha[1];
         }
       }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const float* s0 = sacc + 8 * kk;
+        pa[kk][0] = hopper::pack_bf16(s0[0], s0[1]);
+        pa[kk][1] = hopper::pack_bf16(s0[2], s0[3]);
+        pa[kk][2] = hopper::pack_bf16(s0[4], s0[5]);
+        pa[kk][3] = hopper::pack_bf16(s0[6], s0[7]);
+      }
+    };
 
-      mbar_wait(full_v + s, par);
-      if (!skip) {
-        // O += P V: V is N-major (its 128 columns contiguous), two 64-column
-        // slabs 8 KB apart, 8-key groups 1024 B apart, 16 keys a k-step
-        const uint64_t dv =
-            wgmma_desc_sw128(Vs + s * MlaBf16::V_BYTES, KV_SLAB, 1024);
+    int ta = 0, tb = kr.nt;
+    while (ta < tb && skips(ta)) ++ta;
+    while (tb > ta && skips(tb - 1)) --tb;
+    for (int t = 0; t < ta; ++t) pass(t);
+    if constexpr (T::OVERLAP) {
+      if (ta < tb) {
+        {
+          float sacc[BK / 2], alpha[2];
+          mbar_wait(full_k + stage(ta), phase(ta));
+          wgmma_fence();
+          issue_s(sacc, ta);
+          wgmma_wait<0>();
+          hopper::fence_regs(sacc);
+          release(empty_k + stage(ta));
+          softmax(sacc, alpha, ta);
+          rescale_and_pack(sacc, alpha);
+        }
+        for (int t = ta + 1; t < tb; ++t) {
+          float sacc[BK / 2], alpha[2];
+          mbar_wait(full_k + stage(t), phase(t));
+          mbar_wait(full_v + stage(t - 1), phase(t - 1));
+          hopper::fence_regs(o);
+          wgmma_fence();
+          issue_s(sacc, t);
+          issue_pv(t - 1);
+          wgmma_wait<1>();  // S, the older group, is done; P V may run on
+          hopper::fence_regs(sacc);
+          release(empty_k + stage(t));
+          softmax(sacc, alpha, t);
+          wgmma_wait<0>();
+          hopper::fence_regs(o);
+          release(empty_v + stage(t - 1));
+          rescale_and_pack(sacc, alpha);
+        }
+        mbar_wait(full_v + stage(tb - 1), phase(tb - 1));
         hopper::fence_regs(o);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          hopper::wgmma_m64n128k16_rs_tn(o, pa[kk],
-                                         dv + kk * (16 * 128 / 16));
-        wgmma_commit();
+        issue_pv(tb - 1);
         wgmma_wait<0>();
         hopper::fence_regs(o);
+        release(empty_v + stage(tb - 1));
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty_v + s);
+    } else {
+      for (int t = ta; t < tb; ++t) {
+        // one product at a time: S, the softmax, P V
+        float sacc[BK / 2], alpha[2];
+        mbar_wait(full_k + stage(t), phase(t));
+        wgmma_fence();
+        issue_s(sacc, t);
+        wgmma_wait<0>();
+        hopper::fence_regs(sacc);
+        release(empty_k + stage(t));
+        softmax(sacc, alpha, t);
+        rescale_and_pack(sacc, alpha);
+        mbar_wait(full_v + stage(t), phase(t));
+        hopper::fence_regs(o);
+        wgmma_fence();
+        issue_pv(t);
+        wgmma_wait<0>();
+        hopper::fence_regs(o);
+        release(empty_v + stage(t));
+      }
     }
+    for (int t = tb; t < kr.nt; ++t) pass(t);
+    tg += kr.nt;
     // epilogue: O / l in bf16, staged in this warp's 16 rows of the item's
-    // Q buffer (which no product reads any more): columns 0..63 in slab 0,
-    // 64..127 in slab 1, 16-byte chunks XOR-ed with the row, so that the
-    // stores to memory are whole 256-byte rows
+    // Q buffer (which no product reads any more): columns 64 c .. 64 c + 63
+    // in slab c, 16-byte chunks XOR-ed with the row, so that the stores to
+    // memory are whole rows
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = 1.f / ((l[r] == 0.f) ? 1.f : l[r]);  // the reciprocal from here
     }
-    unsigned char* stage = Qs + qb * MlaBf16::Q_BYTES + wrow * 128;
+    // row g + 8 r of the warp's 16 has (row & 7) == g, so a thread's 16-byte
+    // chunk jt % 8 sits at chunk (jt % 8) ^ g in both of its rows
+    const uint32_t ostage = hopper::smem_addr(Qb) + wrow * 128;
+    const uint32_t mine = ostage + g * 128 + 4 * c4;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = g + 8 * r;
 #pragma unroll
       for (int jt = 0; jt < DV / 8; ++jt)
-        *reinterpret_cast<__nv_bfloat162*>(
-            stage + (jt / 8) * Q_SLAB + row * 128 +
-            16 * ((jt % 8) ^ (row & 7)) + 4 * c4) =
-            __floats2bfloat162_rn(o[4 * jt + 2 * r] * l[r],
-                                  o[4 * jt + 2 * r + 1] * l[r]);
+        hopper::st_shared_b32(
+            mine + r * 1024 + (jt / 8) * Q_SLAB + 16 * ((jt % 8) ^ g),
+            hopper::pack_bf16(o[4 * jt + 2 * r] * l[r],
+                              o[4 * jt + 2 * r + 1] * l[r]));
     }
     __syncwarp();
     bf16* op = static_cast<bf16*>(p.o) + item.b * p.o_sb + item.h * p.o_sh;
+    constexpr int CH = DV / 8;    // 16-byte chunks a row
+    constexpr int RPR = 32 / CH;  // rows a round of the warp, 16 bytes a lane
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {  // two rows a round, 16 bytes a lane
-      const int row = 2 * k + lane / 16, c = lane % 16;
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          stage + (c / 8) * Q_SLAB + row * 128 + 16 * ((c % 8) ^ (row & 7)));
+    for (int k = 0; k < 16 / RPR; ++k) {
+      const int row = RPR * k + lane / CH, c = lane % CH;
+      const uint4 v = hopper::ld_shared_v4(ostage + (c / 8) * Q_SLAB +
+                                           row * 128 +
+                                           16 * ((c % 8) ^ (row & 7)));
       if (wrow + row < rows)
         *reinterpret_cast<uint4*>(op + int64_t(q0 + wrow + row) * p.o_ss +
                                   8 * c) = v;
@@ -1238,19 +1160,12 @@ cudaError_t launch_kernel(K kernel, const Params& p, int bq, int threads,
   return cudaGetLastError();
 }
 
-template <int D, int DV>
+template <int D>
 cudaError_t launch_f32(const Params& p, cudaStream_t s) {
   using C = F32Tiles<D>;
   static bool ready = false;
-  return launch_kernel(flash_f32_kernel<D, DV>, p, C::BQ, 16 * C::TY,
-                       f32_smem_bytes<D, DV>(), ready, s);
-}
-
-template <int D, int DV, int BK>
-cudaError_t launch_bf16(const Params& p, cudaStream_t s) {
-  static bool ready = false;
-  return launch_kernel(flash_bf16_kernel<D, DV, BK>, p, BF_BQ, BF_THREADS,
-                       bf16_smem_bytes<D, DV, BK>(), ready, s);
+  return launch_kernel(flash_f32_kernel<D>, p, C::BQ, 16 * C::TY,
+                       f32_smem_bytes<D>(), ready, s);
 }
 
 cudaError_t launch_mla_f32(const Params& p, cudaStream_t s) {
@@ -1259,35 +1174,40 @@ cudaError_t launch_mla_f32(const Params& p, cudaStream_t s) {
                        MlaF32::SMEM, ready, s);
 }
 
-cudaError_t launch_mla_bf16(const Params& p, cudaStream_t s) {
+template <class T>
+cudaError_t launch_bf16(const Params& p, cudaStream_t s) {
   static bool ready = false;
   // the epilogue stores whole 16-byte chunks of O's rows
   if (p.o_ss % 8 != 0 || reinterpret_cast<uintptr_t>(p.o) % 16 != 0)
     return cudaErrorInvalidValue;
   const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
-  MlaBf16Args a;
+  Bf16Args a;
   a.p = p;
-  if (!hopper::encode_bf16_map(&a.q, encode, p.q, MlaBf16::D, p.Sq, p.H, p.B,
-                       p.q_ss, p.q_sh, p.q_sb, MlaBf16::BQ) ||
-      !hopper::encode_bf16_map(&a.k, encode, p.k, MlaBf16::D, p.Sk, p.KH, p.B,
-                       p.k_ss, p.k_sh, p.k_sb, MlaBf16::BK) ||
-      !hopper::encode_bf16_map(&a.v, encode, p.v, MlaBf16::DV, p.Sk, p.KH, p.B,
-                       p.v_ss, p.v_sh, p.v_sb, MlaBf16::BK))
+  if (!hopper::encode_bf16_map(&a.q, encode, p.q, T::D, p.Sq, p.H, p.B,
+                               p.q_ss, p.q_sh, p.q_sb, T::BQ) ||
+      !hopper::encode_bf16_map(&a.k, encode, p.k, T::D, p.Sk, p.KH, p.B,
+                               p.k_ss, p.k_sh, p.k_sb, T::BK) ||
+      !hopper::encode_bf16_map(&a.v, encode, p.v, T::DV, p.Sk, p.KH, p.B,
+                               p.v_ss, p.v_sh, p.v_sb, T::BK))
     return cudaErrorInvalidValue;
-  cudaError_t err =
-      hopper::set_smem_once(flash_mla_bf16_kernel, MlaBf16::SMEM, ready);
-  int dev = 0, sms = 0;
+  cudaError_t err = hopper::set_smem_once(flash_bf16_kernel<T>, T::SMEM, ready);
+  int dev = 0, sms = 0, l2 = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
   if (err != cudaSuccess) return err;
+  // heaviest first where K and V together fit a third of L2, so that
+  // reading them in any order reads them from memory once
+  const double kv_bytes = 2.0 * p.B * p.KH * p.Sk * (T::D + T::DV);
+  a.heavy_first = 3.0 * kv_bytes <= double(l2);
   // one persistent block an SM, at most one a work item
-  const int64_t items =
-      int64_t(p.Sq + MlaBf16::BQ - 1) / MlaBf16::BQ * p.H * p.B;
+  const int64_t items = int64_t(p.Sq + T::BQ - 1) / T::BQ * p.H * p.B;
   if (items > 0x7fffffff) return cudaErrorInvalidValue;
   const unsigned blocks = unsigned(items < sms ? items : sms);
-  flash_mla_bf16_kernel<<<blocks, MlaBf16::THREADS, MlaBf16::SMEM, s>>>(a);
+  flash_bf16_kernel<T><<<blocks, T::THREADS, T::SMEM, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1310,21 +1230,18 @@ extern "C" int flash_attention_fwd(
            KH,   Sq,   Sk,   causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64 && Dv == 64) err = launch_f32<64, 64>(p, s);
-  else if (dtype == 0 && D == 128 && Dv == 128)
-    err = launch_f32<128, 128>(p, s);
-  else if (dtype == 0 && D == 192 && Dv == 128)
-    err = launch_mla_f32(p, s);
-  else if (dtype == 0 && D == 256 && Dv == 256)
-    err = launch_f32<256, 256>(p, s);
+  if (dtype == 0 && D == 64 && Dv == 64) err = launch_f32<64>(p, s);
+  else if (dtype == 0 && D == 128 && Dv == 128) err = launch_f32<128>(p, s);
+  else if (dtype == 0 && D == 192 && Dv == 128) err = launch_mla_f32(p, s);
+  else if (dtype == 0 && D == 256 && Dv == 256) err = launch_f32<256>(p, s);
   else if (dtype == 1 && D == 64 && Dv == 64)
-    err = launch_bf16<64, 64, 64>(p, s);
+    err = launch_bf16<Bf16Tiles<64, 64>>(p, s);
   else if (dtype == 1 && D == 128 && Dv == 128)
-    err = launch_bf16<128, 128, 64>(p, s);
+    err = launch_bf16<Bf16Tiles<128, 128>>(p, s);
   else if (dtype == 1 && D == 192 && Dv == 128)
-    err = launch_mla_bf16(p, s);
+    err = launch_bf16<Bf16Tiles<192, 128>>(p, s);
   else if (dtype == 1 && D == 256 && Dv == 256)
-    err = launch_bf16<256, 256, 32>(p, s);
+    err = launch_bf16<Bf16Tiles<256, 256>>(p, s);
   return int(err);
 }
 

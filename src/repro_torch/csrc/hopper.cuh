@@ -1,20 +1,20 @@
 // Device helpers shared by the port's kernels.
 //
 // sm_80+ instructions that Hopper keeps: an fp32 store in either element
-// type, 16-byte asynchronous copies (cp.async), ldmatrix, the bf16
-// tensor-core product mma.sync m16n8k16 with fp32 accumulation, and 2^x on
-// the MUFU unit; and, on the host, the one-time setting of a kernel's
-// shared-memory attributes and the encoding of bf16 TMA tensor maps.
+// type, shared-memory loads and stores at 32-bit addresses, 16-byte
+// asynchronous copies (cp.async), ldmatrix, and 2^x on the MUFU unit; and,
+// on the host, the one-time setting of a kernel's shared-memory attributes
+// and the encoding of bf16 TMA tensor maps.
 //
-// sm_90a only (the `a` target: wgmma exists nowhere else), used by the MLA
-// bf16 attention kernel and the bf16 SSD scan: mbarriers (init, arrive,
-// arrive with an expected transaction count, parity wait), TMA tile loads
+// sm_90a only (the `a` target: wgmma exists nowhere else), used by the bf16
+// attention kernel and the bf16 SSD scan: mbarriers (init, arrive, arrive
+// with an expected transaction count, parity wait), TMA tile loads
 // (cp.async.bulk.tensor, 4-d, completed on an mbarrier), tensor-map
 // prefetch and the proxy fence between generic and async accesses to
 // shared memory, setmaxnreg, and the warpgroup products wgmma.mma_async
-// m64n64k16 and m64n128k16, A from registers and B from shared memory
-// K-major or N-major, with their fence / commit / wait and
-// 128-byte-swizzle matrix descriptors.
+// m64n64k16, m64n128k16 and m64n256k16, A from registers (or, at m64n64k16,
+// from shared memory) and B from shared memory K-major or N-major, with
+// their fence / commit / wait and 128-byte-swizzle matrix descriptors.
 
 #pragma once
 
@@ -33,6 +33,20 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4 and 16 bytes at a shared-memory address (smem_addr): 32-bit addresses
+// where a generic pointer would take 64 bits a register pair.
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // Copy 16 bytes from global to shared memory without passing through
@@ -74,19 +88,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p))
       : "memory");
-}
-
-// d += a b for a 16x16 bf16 tile a (row major) and a 16x8 bf16 tile b
-// (column major), in fp32.  With g = lane / 4 and c = lane % 4: a holds
-// (g, 2c..2c+1), (g+8, 2c..), (g, 2c+8..), (g+8, 2c+8..); b holds rows
-// 2c..2c+1 and 2c+8..2c+9 of column g; d holds (g, 2c..2c+1) and
-// (g+8, 2c..2c+1).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x on the MUFU.EX2 unit (about 2 ulp), denormal results flushed to 0:
@@ -374,6 +375,58 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
+}
+
+// d (64 x 64, fp32; d = 0 first when !accumulate) += a b^T with both
+// operands in shared memory, K-major: a (64 x 16 bf16) and b (64 x 16 bf16)
+// through their descriptors.  d is laid out as in wgmma_m64n64k16_rs.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 256, fp32) += a (64 x 16 bf16 in registers, as in
+// wgmma_m64n64k16_rs) b, with b (16 x 256 bf16) in shared memory N-major:
+// four 64-column blocks, lbo apart in its descriptor.  Thread t holds
+// column 8 (i / 4) + 2 (t % 4) + i % 2 of d[i], rows as there.
+__device__ __forceinline__ void wgmma_m64n256k16_rs_tn(float (&d)[128],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
+        HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56),
+        HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88),
+        HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 #undef HOPPER_D8

@@ -11,9 +11,9 @@ dimension is unit, so the model can hand it transposed views without a
 copy (a tensor whose rows are not 16-byte aligned, which the kernel's
 asynchronous copies need, is made contiguous first).  The output is a new
 contiguous ``(B, H, Sq, Dv)`` tensor in q's type.  fp32 runs on the CUDA
-cores, exactly; bf16 on the tensor cores (``mma.sync`` at D = 64, 128 and
-256; at MLA's pair a Hopper kernel of its own: ``wgmma`` fed by TMA loads
-on ``mbarrier``s, the tensor maps encoded per call from the strides).
+cores, exactly (MLA's pair in a kernel of its own); bf16 on the tensor
+cores, one Hopper kernel for every pair: persistent, ``wgmma`` fed by TMA
+loads on ``mbarrier``s, the tensor maps encoded per call from the strides.
 
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`.  On a CUDA tensor it
@@ -94,9 +94,8 @@ def check_inputs(q, k, v, window) -> None:
 
 def _rows_aligned(t):
     """t itself when every row starts on a 16-byte boundary and no dim
-    longer than 1 has stride 0 (the MLA bf16 kernel's TMA maps take
-    positive strides only), else a contiguous copy (fresh storage, so
-    aligned)."""
+    longer than 1 has stride 0 (the bf16 kernel's TMA maps take positive
+    strides only), else a contiguous copy (fresh storage, so aligned)."""
     per = 16 // t.element_size()
     if t.data_ptr() % 16 == 0 and all(
             st % per == 0 and (st > 0 or n == 1)

@@ -66,6 +66,11 @@ CASES = [
     ("float32", 1, 2, 1, 256, 128, 64, True, 16),       # fully-masked rows
     ("bfloat16", 1, 4, 2, 128, 128, 128, True, None),
     ("bfloat16", 1, 6, 1, 256, 256, 64, False, 64),
+    # the card's bf16 kernel is held to this plain version at head dims 128
+    # and 256 too: a window that bites at 256, non-causal, and Sq != Sk
+    ("bfloat16", 1, 2, 1, 256, 256, 256, True, 128),
+    ("bfloat16", 1, 4, 1, 128, 128, 256, False, None),
+    ("bfloat16", 1, 4, 2, 256, 128, 128, True, None),
 ]
 
 
@@ -137,7 +142,7 @@ def test_mla_ref_matches_jax_sdpa(dtype, b, h, kh, sq, sk, causal, window):
 def test_rows_aligned_copies_what_the_kernels_cannot_address():
     """The wrapper hands the kernels every tensor as it is when its rows
     start on 16 bytes and its strides are positive, and a contiguous copy
-    otherwise: a broadcast (stride-0) head dim, which the MLA bf16 kernel's
+    otherwise: a broadcast (stride-0) head dim, which the bf16 kernel's
     TMA maps cannot describe, or a row start off 16 bytes."""
     kv = torch.randn((2, 64, 3, 320), dtype=torch.bfloat16)
     v = kv[..., 192:].transpose(1, 2)  # the model's column view of v

@@ -60,7 +60,10 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, h, kh, sq, sk,
 
 # The tensor-core (bf16) path at every head dim: rows that see no key (Sq >
 # Sk with a window of 16: rows 143.. get the mean of v), a ragged Sq != Sk,
-# non-causal, and a window that bites at head dim 256.
+# non-causal, and a window that bites at head dim 256.  Then each branch of
+# the wgmma kernel at each head dim: a grid smaller than the card's 132 SMs
+# (batch 1, 2 heads), Sq = 1 against Sk = 77, Sq < Sk and Sq > Sk causal, a
+# window that bites at 64 and 128, and GQA 12/2, 16/1 and 20/20.
 # (d, B, H, K, Sq, Sk, causal, window)
 BF16_CASES = [
     (64, 1, 2, 1, 256, 128, True, 16),
@@ -69,6 +72,15 @@ BF16_CASES = [
     (128, 1, 4, 2, 320, 200, True, None),
     (256, 1, 4, 1, 200, 333, False, None),
     (256, 1, 4, 1, 640, 640, True, 128),
+    *((d, 1, 2, 2, 512, 512, True, None) for d in (64, 128, 256)),
+    *((d, 1, 2, 2, 1, 77, True, None) for d in (64, 128, 256)),
+    *((d, 1, 4, 2, 100, 333, True, None) for d in (64, 128, 256)),
+    *((d, 1, 4, 2, 333, 100, True, None) for d in (64, 128, 256)),
+    (64, 1, 4, 2, 640, 640, True, 128),
+    (128, 1, 4, 2, 640, 640, True, 128),
+    (128, 2, 12, 2, 384, 384, True, None),
+    (256, 2, 16, 1, 384, 384, True, None),
+    (64, 2, 20, 20, 384, 384, True, None),
 ]
 
 
@@ -91,6 +103,25 @@ def test_flash_attention_bf16_tensor_cores(cuda, d, b, h, kh, sq, sk, causal,
         mean = v.float().mean(2)  # (b, kh, d)
         assert (out[:, :, -1].float() - mean.repeat_interleave(
             h // kh, 1)).abs().max().item() <= 2e-2
+
+
+# q, k and v as column views of one (B, S, H, 3D) tensor, as a fused QKV
+# projection gives them; two launches on the same inputs agree bit for bit
+# (the schedule decides which block takes a row, never its arithmetic)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_bf16_fused_views_repeat_bitwise(cuda, d):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    qkv = torch.randn((2, 300, 6, 3 * d), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].transpose(1, 2) for i in range(3))
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    again = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    assert torch.equal(out, again)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    assert (out.float() - want).abs().max().item() <= 2e-2
 
 
 # DeepSeek-V2's MLA prefill: q and k at head dim 192, v at 128, 128 heads (no
@@ -178,6 +209,39 @@ def test_flash_attention_head_dim_256(cuda, dtype, window, s, atol):
     want = flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
                                window=window)
     assert (out.float() - want).abs().max().item() <= atol
+
+
+def flash_fp32_digest(device, b, h, kh, s, d, window) -> str:
+    """sha256 of the fp32 kernel's causal output on q, k, v drawn with numpy
+    from seed 7, q in the model's transposed (B, S, H, D) layout."""
+    import hashlib
+
+    import numpy as np
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d))
+                                .astype(np.float32)).to(device).transpose(1, 2)
+               for n in (h, kh, kh))
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+# the generic fp32 kernel's outputs at the three main fp32 shapes (Qwen2-1.5B,
+# RecurrentGemma-9B, Whisper large-v3's decoder), pinned bit for bit: the
+# digests of the build before its v head dim was folded into q's, on an H100
+# (the kernel is deterministic).  (B, H, K, S, D, window)
+FLASH_FP32_DIGESTS = {
+    (4, 12, 2, 512, 128, None):
+        "31026d9b5c183448615d59e5cd3b9413c5abb7b0ba65eb3db89b9eb35c2c226d",
+    (4, 16, 1, 512, 256, 2048):
+        "c457decfb1e81cfbd2398b7dd45de8308e8ced98974b9c17bee3462e3e616cdb",
+    (4, 20, 20, 384, 64, None):
+        "481a4acad1869aa7a9cd60f1b9f6896e5c11269eaa8905c764ddcd5c53aad743",
+}
+
+
+@pytest.mark.parametrize("shape", list(FLASH_FP32_DIGESTS))
+def test_flash_attention_fp32_output_unchanged(cuda, shape):
+    assert flash_fp32_digest(cuda, *shape) == FLASH_FP32_DIGESTS[shape]
 
 
 # (dtype, b, s, h, p, n, chunk, atol, rtol, views): the Mamba2-370M prefill
