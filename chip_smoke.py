@@ -87,9 +87,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    within rel 1e-5, every step-1 gradient within normwise 1e-3, every
    parameter after step 2 within normwise 1e-4 (leaves that start at zero
    excepted).  Ten steps on ``tests/test_training.py``'s learnable batch
-   must end below their first loss.  Then where a step's time goes (host
-   clock, synchronized), the device's busy share (``torch.profiler``), and
-   each kernel's plain-recompute backward per call (device time).
+   must end below their first loss.  Then where the last of them, profiled,
+   spends its device time by the program's spans (``repro_torch.spans``:
+   forward, backward with the remat recompute inside it, AdamW; kernels
+   matched to spans by launch time), the device's busy share
+   (``torch.profiler``), and each kernel's plain-recompute backward per
+   call (device time).
 7. elastic training and dynamic switching on ``TorchExecutor`` (cuda),
    every switch migrating weights and AdamW m/v through the torch comm
    lowering.  (a) The probe traces of ``repro/runtime/selftest.py``
@@ -241,7 +244,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    within FLIP_LOSS_RTOL and gradients, m and v within FLIP_NORMWISE.  (c)
    On the learnable batch (in the config's input kind) the loss falls
    within phase 6's ten steps, stopping once it has; the second step
-   profiled for the device's busy share.  (d) B1's plain-recompute
+   profiled for the device's busy share and phase 6's split by the
+   program's spans.  (d) B1's plain-recompute
    backward per call at the config's shape (MLA's q/k 192 and v 128).
 13. the training line, the elastic line, the pipeline line, the families
    line (phases 9 and 12), the ranks line, the production line, the
@@ -2086,41 +2090,41 @@ def plain_backward_ms(torch, kind, cfg, calls=5, seq=TRAIN_SEQ):
     return device, host
 
 
-def train_breakdown(torch, cfg, params, batch):
-    """One training step split into its parts, host clock with the device
-    synchronized at each boundary: each microbatch's forward (the loss
-    under remat) and backward (its gradients), then AdamW."""
-    from repro_torch.models.model import loss_fn
-    from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
-                                         init_opt_state)
-    from repro_torch.train.steps import _split
-    from repro_torch.tree import tree_leaves
-    leaves = tree_leaves(params)
-    fwd = bwd = 0.0
-    acc = None
-    for mb in _split(batch, TRAIN_MICRO):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _ = loss_fn(params, mb, cfg, remat=True)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        grads = torch.autograd.grad(loss, leaves)
-        torch.cuda.synchronize()
-        fwd, bwd = fwd + t1 - t0, bwd + time.perf_counter() - t1
-        acc = list(grads) if acc is None else [a.add_(g) for a, g in
-                                               zip(acc, grads)]
-        del grads, loss
-    opt = init_opt_state(params)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        apply_updates(leaves, acc, {"m": tree_leaves(opt["m"]),
-                                    "v": tree_leaves(opt["v"]),
-                                    "count": opt["count"]}, AdamWConfig())
-    torch.cuda.synchronize()
-    adam = time.perf_counter() - t0
-    del acc, opt
-    return fwd * 1e3, bwd * 1e3, adam * 1e3
+def span_split(prof) -> dict:
+    """Device ms of a profiled training step by the program's spans
+    (``repro_torch.spans``): for each of ``train.forward``,
+    ``train.backward``, ``model.remat_recompute`` (inside the backward)
+    and ``train.optimizer``, the kernels whose launch lies inside one of
+    its ranges, matched by launch time as the benchmark matches them
+    (``bench/trace.py``; the backward's kernels are launched from the
+    autograd engine's thread); ``"kernels"``: every kernel of the step."""
+    from bench import trace as tracing
+    from repro_torch import spans
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        tr = tracing.load(path)
+    out = {"kernels": sum(k[1] - k[0] for k in tr.kernels) / 1e3}
+    for name in (spans.FORWARD, spans.BACKWARD, spans.REMAT,
+                 spans.OPTIMIZER):
+        ranges = [r for r in tr.ranges(name) if r[2] == name]
+        out[name] = sum(k[1] - k[0] for ks in tr.launched_in(ranges)
+                        for k in ks) / 1e3
+    return out
+
+
+def print_span_split(what, split) -> None:
+    """One line of :func:`span_split`; fails if a span read nothing."""
+    from repro_torch import spans
+    fwd, bwd = split[spans.FORWARD], split[spans.BACKWARD]
+    remat, adam = split[spans.REMAT], split[spans.OPTIMIZER]
+    print(f"  where {what} goes (device time of the kernels launched inside "
+          f"the program's spans): forward {fwd:.1f} ms, backward {bwd:.1f} "
+          f"ms (the remat recompute {remat:.1f} ms inside it), AdamW "
+          f"{adam:.1f} ms; together {(fwd + bwd + adam) / split['kernels']:.2%}"
+          f" of the {split['kernels']:.1f} ms of kernels")
+    if min(fwd, bwd, remat, adam) <= 0:
+        fail(f"{what}: a span of the training step read no kernel: {split}")
 
 
 def profile_device(torch, prof, wall_ms):
@@ -2174,6 +2178,7 @@ def phase_train(torch, policy, kernels, arch, layers, stage):
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import spans
     from repro_torch.launch import train as launch
     from repro_torch.models.model import init_params
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
@@ -2253,11 +2258,12 @@ def phase_train(torch, policy, kernels, arch, layers, stage):
     busy, plain_prof, _ = profile_device(torch, prof, walls[-1])
     unprofiled = float(np.median(walls[1:-1]))
     share = busy / unprofiled
+    split = span_split(prof)
+    fwd, bwd = split[spans.FORWARD], split[spans.BACKWARD]
     del opt, prof
     gc.collect()
     torch.cuda.empty_cache()
 
-    fwd, bwd, adam = train_breakdown(torch, cfg, params, batch)
     kinds = [k for k, v in per_step.items() if v]
     calls = {k: per_step[k] // 2 for k in kinds}   # backward calls a step
     timed = {k: plain_backward_ms(torch, k, cfg) for k in kinds}
@@ -2271,9 +2277,7 @@ def phase_train(torch, policy, kernels, arch, layers, stage):
           f"{step_ms:.1f} ms = {tokens / step_ms * 1e3:.0f} tok/s; "
           f"{flops / 1e12:.1f} TFLOP of weight matmuls a step = "
           f"{flops / step_ms / 1e9:.1f} TFLOP/s")
-    print(f"  where a step goes (host clock, device synchronized at each "
-          f"boundary): forward {fwd:.1f} ms, backward (with the remat "
-          f"recompute) {bwd:.1f} ms, AdamW {adam:.1f} ms")
+    print_span_split("the profiled learning step", split)
     print(f"  profiled learning step: device {busy:.1f} ms (torch.profiler) "
           f"against {unprofiled:.1f} ms host for an unprofiled step "
           f"({share:.1%} busy; {walls[-1]:.1f} ms under the profiler); the "
@@ -2296,7 +2300,8 @@ def phase_train(torch, policy, kernels, arch, layers, stage):
             "matmul_tflop": flops / 1e12,
             "peak_memory_gib": res["peak_memory_gib"],
             "busy_share": share, "forward_ms": fwd, "backward_ms": bwd,
-            "adamw_ms": adam, "plain_backward_ms": plain,
+            "remat_ms": split[spans.REMAT],
+            "adamw_ms": split[spans.OPTIMIZER], "plain_backward_ms": plain,
             "plain_backward_share": plain_step / bwd,
             "plain_backward_host_ms": {k: t[1] for k, t in timed.items()},
             "plain_profiler_ms": plain_prof, "learn_losses": losses,
@@ -3196,8 +3201,8 @@ def phase_family_train(torch, policy, kernels, arch, layers, experts, seq,
     part("b")
 
     # (c) learning on the memorizable batch, until the loss falls; the
-    # second step profiled (the device only: Whisper's host-side events
-    # took ~15 s to collect), the later ones give the unprofiled wall
+    # second step profiled (host events too, for the spans' split), the
+    # later ones give the unprofiled wall
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(0))
@@ -3210,7 +3215,8 @@ def phase_family_train(torch, policy, kernels, arch, layers, experts, seq,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 1:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
                 params, opt, met = step(params, opt, batch)
                 torch.cuda.synchronize()
         else:
@@ -3232,6 +3238,8 @@ def phase_family_train(torch, policy, kernels, arch, layers, experts, seq,
     busy = profile_device(torch, prof, walls[1])[0]
     unprofiled = float(np.median(walls[2:]))
     share = busy / unprofiled
+    split = span_split(prof)
+    print_span_split("the profiled learning step", split)
     del params, opt, prof, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3257,7 +3265,7 @@ def phase_family_train(torch, policy, kernels, arch, layers, experts, seq,
             "peak_memory_gib": res["peak_memory_gib"], "busy_share": share,
             "plain_backward_ms": {"flash": back},
             "plain_backward_host_ms": {"flash": back_host},
-            "learn_losses": learn, "learn_peak_gib": learn_peak,
+            "span_ms": split, "learn_losses": learn, "learn_peak_gib": learn_peak,
             "seconds": seconds, **agree}
 
 

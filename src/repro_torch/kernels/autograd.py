@@ -19,8 +19,11 @@ from __future__ import annotations
 
 import torch
 
-#: the prefix of the profiler range around each plain recompute in the
-#: backward, followed by the plain version's name
+from ..spans import span
+
+#: the prefix of the profiler range (a :class:`repro_torch.spans.span`)
+#: around each plain recompute in the backward, followed by the plain
+#: version's name
 RANGE_PREFIX = "plain backward: "
 
 
@@ -41,8 +44,7 @@ class PlainBackward(torch.autograd.Function):
     def backward(ctx, *grads):
         need = ctx.needs_input_grad[3:]
         none = (None,) * (3 + len(need))
-        with torch.profiler.record_function(RANGE_PREFIX
-                                            + ctx.plain.__name__):
+        with span(RANGE_PREFIX + ctx.plain.__name__):
             with torch.enable_grad():
                 inputs = [t.detach().requires_grad_(n)
                           for t, n in zip(ctx.saved_tensors, need)]

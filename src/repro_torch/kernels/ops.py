@@ -10,6 +10,7 @@ kernel, and without autograd (serving) it is the kernel's call alone.
 
 from __future__ import annotations
 
+from ..spans import attention_name, span
 from .flash_attention import flash_attention_with_grad
 from .policy import select_attention_impl, select_rglru_impl, select_ssd_impl
 from .ref import flash_attention_ref, rglru_ref, ssd_scan_ref
@@ -18,12 +19,15 @@ from .ssd_scan import ssd_scan_with_grad
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None):
-    """q: (B, H, Sq, D); k: (B, K, Sk, D); v: (B, K, Sk, Dv)."""
-    if select_attention_impl(q.shape, k.shape, q.device,
-                             v.shape) == "cuda":
-        return flash_attention_with_grad(q, k, v, causal=causal,
-                                         window=window)
-    return flash_attention_ref(q, k, v, causal=causal, window=window)
+    """q: (B, H, Sq, D); k: (B, K, Sk, D); v: (B, K, Sk, Dv).  Each call
+    runs in a ``kernels.attention <shapes>`` span
+    (:func:`repro_torch.spans.attention_name`)."""
+    with span(lambda: attention_name(q, k, v, causal, window)):
+        if select_attention_impl(q.shape, k.shape, q.device,
+                                 v.shape) == "cuda":
+            return flash_attention_with_grad(q, k, v, causal=causal,
+                                             window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 def ssd(x, dt, A, B, C, *, chunk: int):

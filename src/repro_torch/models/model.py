@@ -29,6 +29,7 @@ Public entry points:
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..sharding.hints import (batch_axes, gather_weights, hint, is_dtensor,
                               pin_residual, shardwise)
+from ..spans import REMAT, span
 from ..tree import tree_leaves, tree_map
 from .config import ModelConfig
 from .layers import (_init, apply_attention, apply_mla, apply_mlp,
@@ -343,6 +345,13 @@ def _embed_inputs(params, batch, cfg: ModelConfig, pos: int | None = None):
     return x
 
 
+def _remat_contexts():
+    """``checkpoint``'s ``context_fn``: nothing around the forward, the
+    ``model.remat_recompute`` span around the block's re-run in the
+    backward."""
+    return nullcontext(), span(REMAT)
+
+
 def run_encoder(params, batch, cfg: ModelConfig, remat: bool = False):
     """The audio encoder (``repro/models/model.py:_run_encoder``) over
     ``batch["audio_embeds"]`` (B, frames, d): the sinusoid added, the
@@ -357,7 +366,8 @@ def run_encoder(params, batch, cfg: ModelConfig, remat: bool = False):
 
     for lp in _layers(params["encoder"]):
         h = (checkpoint(enc, h, lp, use_reentrant=False,
-                        preserve_rng_state=False) if remat else enc(h, lp))
+                        preserve_rng_state=False, context_fn=_remat_contexts)
+             if remat else enc(h, lp))
     return _norm_apply(cfg)(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -373,9 +383,10 @@ def forward(params, batch, cfg: ModelConfig, remat: bool = False,
             last_only: bool = False):
     """Full-sequence forward -> (logits, aux_loss).  ``remat`` keeps only
     each block's input for the backward and runs the block again there
-    (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
-    each scanned block in ``jax.checkpoint``; the kernels then run once in
-    the forward and once in the recompute.  ``last_only`` computes the LM
+    (``torch.utils.checkpoint``, non-reentrant, the re-run in a
+    ``model.remat_recompute`` span), as the JAX package wraps each scanned
+    block in ``jax.checkpoint``; the kernels then run once in the forward
+    and once in the recompute.  ``last_only`` computes the LM
     head on the final position only (prefill serving).  ``aux_loss`` is
     the MoE blocks' load-balance losses summed (fp32), zero without MoE.
     The batch holds ``tokens``, or ``embeds`` and ``positions3`` (M-RoPE),
@@ -401,7 +412,8 @@ def forward(params, batch, cfg: ModelConfig, remat: bool = False,
         for lp in _layers(gparams):
             if remat:
                 x, aux = checkpoint(blk, x, lp, use_reentrant=False,
-                                    preserve_rng_state=False)
+                                    preserve_rng_state=False,
+                                    context_fn=_remat_contexts)
             else:
                 x, aux = blk(x, lp)
             if aux is not None:

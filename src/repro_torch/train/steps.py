@@ -3,7 +3,8 @@
 
 ``build_train_step``: gradient accumulation over microbatches (the global
 batch is cut into ``num_microbatches`` along dim 0 inside the step), remat
-around each block, fp32 gradient accumulation, AdamW update in place.
+around each block, fp32 gradient accumulation, AdamW update in place; its
+phases run in :mod:`repro_torch.spans`' ranges when a profiler records.
 
 ``build_prefill_step`` / ``build_decode_step``: the serving pair -- prefill
 runs a full forward over the context; decode consumes one token with the
@@ -27,6 +28,7 @@ from ..models.config import ModelConfig
 from ..models.model import decode_step, forward, loss_fn
 from ..optim.adamw import AdamWConfig, apply_updates
 from ..sharding.hints import active, batch_axes, hint, like
+from ..spans import BACKWARD, FORWARD, OPTIMIZER, span
 from ..tree import tree_leaves, unflatten_like
 
 
@@ -63,26 +65,31 @@ def accumulate_grads(params, batch, cfg: ModelConfig,
     One forward and backward per microbatch.  The fp32 gradients add up in
     the reference's order: from zero, each microbatch in turn, then divided
     by the count; the loss is the mean of the microbatch losses.  The
-    parameters are made leaves that require grad."""
+    parameters are made leaves that require grad.  Each microbatch's
+    forward and backward run in a ``train.forward`` and a
+    ``train.backward`` span (:mod:`repro_torch.spans`), the divide in the
+    last backward's."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     n = num_microbatches
     acc, losses = None, []
-    for mb in (_split(batch, n) if n > 1 else [batch]):
-        loss, _ = loss_fn(params, mb, cfg, remat=remat)
-        grads = [like(g, p) for g, p in
-                 zip(torch.autograd.grad(loss, leaves), leaves)]
-        losses.append(loss.detach())
-        if acc is None:    # 0 + g is g
-            acc = [g.float() for g in grads]
-        else:
-            for a, g in zip(acc, grads):
-                a.add_(g.float())
-        del grads, loss
-    if n > 1:
-        for a in acc:
-            a.div_(n)
+    for j, mb in enumerate(_split(batch, n) if n > 1 else [batch]):
+        with span(FORWARD):
+            loss, _ = loss_fn(params, mb, cfg, remat=remat)
+        with span(BACKWARD):
+            grads = [like(g, p) for g, p in
+                     zip(torch.autograd.grad(loss, leaves), leaves)]
+            losses.append(loss.detach())
+            if acc is None:    # 0 + g is g
+                acc = [g.float() for g in grads]
+            else:
+                for a, g in zip(acc, grads):
+                    a.add_(g.float())
+            del grads, loss
+            if n > 1 and j == n - 1:
+                for a in acc:
+                    a.div_(n)
     loss = torch.mean(torch.stack(losses)) if n > 1 else losses[0]
     return loss, unflatten_like(params, acc)
 
@@ -95,8 +102,9 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     def train_step(params, opt_state, batch):
         loss, grads = accumulate_grads(params, batch, cfg, num_microbatches,
                                        remat)
-        params, opt_state, om = apply_updates(params, grads, opt_state,
-                                              opt_cfg)
+        with span(OPTIMIZER):
+            params, opt_state, om = apply_updates(params, grads, opt_state,
+                                                  opt_cfg)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step
